@@ -1,0 +1,645 @@
+#!/usr/bin/env python3
+"""Run the PyTorch + CUDA port (`bazuka_tpu_torch`) on one NVIDIA GPU and
+check it.
+
+    python3 chip_smoke.py              # d = Np = 2^22 (the default)
+    python3 chip_smoke.py --log-d 20   # a smaller real-size proof
+
+Phases, each printed as one JSON line:
+  1. device   card name and power limit (nvidia-smi), torch and CUDA versions
+  2. build    nvcc builds every kernel from `bazuka_tpu_torch/csrc/`
+  3. toy      the committed toy key (tests/data/toy_multiply_params.npz),
+              2-constraint multiply circuit at r = 7, s = 11: the proof's
+              wire bytes equal the JAX package's (pinned below), and
+              groth16_verify accepts [z] and rejects [z+1] and [z, 0]
+  4. proof    one `create_proof` at d = Np = 2^22 on a synthetic circuit of
+              the MPN batch-64 update proof's size (3,275,554 constraints)
+              and a key whose every point has a known discrete log: A, B, C
+              equal the points computed on the host from scalars alone, and
+              h(x) satisfies a(ρ)·b(ρ) − c(ρ) = h(ρ)·Z(ρ) at a random ρ, with
+              a(ρ), b(ρ), c(ρ) summed over the circuit's own terms
+              (barycentric Lagrange basis; neither the port's row plans nor
+              its NTT).  The kernels' launch counts and sizes are recorded.
+  5. kernel   each kernel replayed at every size the proof launched it with,
+              on fresh random operands (plus the edge cases), against its
+              plain PyTorch version: bit-identical limbs, its time, the plain
+              version's time and the card's bound, per size and averaged
+              over the proof's launches
+Then the `{"kernels": [...]}` line (launch counts from phase 4's proof,
+times averaged over its launches) and the last line
+`{"ok": true, "device": {...}}`.  Any failed check raises, so the script
+exits non-zero and prints no result.  Without a CUDA device it exits with
+code 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from bazuka_tpu_torch.crypto import bls12_381 as bls
+from bazuka_tpu_torch.fields.host import FR_GENERATOR, FR_MODULUS
+from bazuka_tpu_torch.fields.limbs import (
+    FP_LIMBS,
+    FR_LIMBS,
+    fp_field,
+    fr_field,
+    int_to_limbs,
+    to_torch,
+)
+from bazuka_tpu_torch.groth16 import keygen, prove, qap
+from bazuka_tpu_torch.groth16.r1cs import (
+    ONE,
+    CompiledR1CS,
+    ConstraintSystem,
+    lc,
+)
+from bazuka_tpu_torch.groth16.verify import groth16_verify
+from bazuka_tpu_torch.ops import _cuda
+from bazuka_tpu_torch.ops import curve_kernels as ck
+from bazuka_tpu_torch.ops import field_kernel as fk
+from bazuka_tpu_torch.ops import msm_lm
+from bazuka_tpu_torch.ops import weierstrass as wst
+from bazuka_tpu_torch.utils import ser
+from bazuka_tpu_torch.zk.proof import Groth16VerifyingKey
+
+P = FR_MODULUS
+R_ORDER = bls.R
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TOY_KEY = os.path.join(ROOT, "tests", "data", "toy_multiply_params.npz")
+
+# Wire bytes of bazuka_tpu's proof of the toy multiply circuit (x = 3,
+# y = 5) under the committed key at r = 7, s = 11;
+# tests/test_torch_prove.py holds this constant against a live JAX proof.
+TOY_PROOF_HEX = (
+    "080f5cda6540f4a3dc5d5a6af40012bc5026ef149437f06b5085bdacfe2e3677"
+    "7f14e4ff22fc5b58a57134faab11d118a83b7b2036d0984a30daf9f33760278a"
+    "5f52f37de71e453f102f1b316c2e641bcd78079feaa4fc2e99f2647743c72609"
+    "00de611bbf1c2251707b8371d8df9b6361fa40f382e33ec6ffb24610e2651fd8"
+    "0dbad5ae401a305f1e04036ef710a5e419de0629e240e6cb1ce3879795700879"
+    "a0d2435e5768c256d64ffa8c3463753ae9022290c4096db1e21b2d94dc4388e7"
+    "149c267f1c27cb22cd5504368dce773a2625d64804d517a346f6d03c6e49a6fc"
+    "053d3bba4caa94a6f96d048913800f440ecd6c77686a6c00795b3aabde51fa06"
+    "e561cc1a17e38da28f2aadcd55870b246b10ade337afbe943cbe74d1c82a8a26"
+    "0700ae22c54cbccfc8e5c90333d88af961435061cdc8741b53c55b7194626ce3"
+    "6f782193e00cefceaea0606ff3db313fbe0dbb0aa911388417da003af63cee9f"
+    "d8e93d3e7a4396bbc8e6c09a4ce36a3a008d3e8a2a81d08436651ae8fa2dbea5"
+    "361800"
+)
+
+# seeds the synthetic circuit, its key and the evaluation point ρ
+ROOT_SEED = 22
+
+# MPN update proof at batch 64: 3,275,554 constraints, d = 2^22.
+MPN_B64_CONSTRAINTS = 3_275_554
+
+# H100 SXM peaks: HBM3 bytes/s (NVIDIA data sheet), and 32-bit integer
+# multiply-adds/s = 132 SMs x 64 IMAD per SM per clock (CUDA C++
+# Programming Guide, arithmetic throughput, compute capability 9.0) x the
+# 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 132 * 64 * 1.98e9
+
+
+def mont_mul_imads(n_limbs: int) -> int:
+    """32-bit multiply-adds of one CIOS Montgomery multiply over s = n/2
+    words: s^2 word products and s^2 + s reduction products, each word
+    product a low and a high IMAD, the m = t0 * p' products one IMAD."""
+    s = n_limbs // 2
+    return 2 * s * s + 2 * s * s + s
+
+
+def bound(nbytes: int, imads: int):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = imads / IMAD_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+# ------------------------------------------------------------ synthetic data
+
+
+class SyntheticCircuit:
+    """A satisfied R1CS shaped like the MPN witness, built with numpy.
+
+    Var 0 is ONE, var 1 the public input x = c_0.  Half the constraints are
+    boolean wires (1 − b)·b = 0 (a dense ONE column, coefficient −1, and one
+    huge group of equal scalars for the duplicate-scalar presum); the rest
+    are a multiply chain c_k = c_{k−1}·c_{j(k)} with random earlier factors.
+    Exposes what `create_proof` reads: `n_constraints`, `compiled()` and
+    `full_assignment()`."""
+
+    def __init__(self, n_constraints: int, seed: int):
+        rng = np.random.default_rng(seed)
+        nb = n_constraints // 2
+        k = n_constraints - nb
+        self.n_constraints = n_constraints
+        bits = rng.integers(0, 2, nb)
+        # factor of chain step t (1..k): an earlier chain value j in [0, t)
+        j = (rng.random(k) * np.arange(1, k + 1)).astype(np.int64)
+        x = int.from_bytes(rng.bytes(32), "little") % P
+        chain = [x]
+        for t in range(k):
+            chain.append(chain[t] * chain[j[t]] % P)
+        self.z = [1, x] + bits.tolist() + chain[1:]
+
+        def cvar(t):  # var index of chain value c_t
+            return np.where(t == 0, 1, 2 + nb + t - 1)
+
+        rb = np.arange(nb, dtype=np.int64)
+        bvar = 2 + rb
+        t = np.arange(1, k + 1, dtype=np.int64)
+        rc = nb + t - 1
+        one = np.zeros(nb, np.int64)
+        rows = (np.concatenate([np.repeat(rb, 2), rc]),
+                np.concatenate([rb, rc]), rc)
+        vars_ = (np.concatenate([np.stack([one, bvar], 1).ravel(),
+                                 cvar(t - 1)]),
+                 np.concatenate([bvar, cvar(j)]), cvar(t))
+        cids = (np.concatenate([np.tile([0, 1], nb), np.zeros(k, np.int64)]),
+                np.zeros(nb + k, np.int64), np.zeros(k, np.int64))
+        self._compiled = CompiledR1CS(
+            num_vars=len(self.z), num_inputs=2, n_constraints=n_constraints,
+            rows=tuple(a.astype(np.int32) for a in rows),
+            vars=tuple(a.astype(np.int32) for a in vars_),
+            cids=tuple(a.astype(np.int32) for a in cids),
+            palette=[1, P - 1],
+        )
+
+    def compiled(self) -> CompiledR1CS:
+        return self._compiled
+
+    def full_assignment(self):
+        return self.z
+
+
+def _gen(kind):
+    return bls.G1_GEN if kind == "g1" else bls.G2_GEN
+
+
+def _coords(kind, pt, proj: bool):
+    """Host point -> Montgomery coordinate ints in the limb-major plane
+    order (x y [z] for G1, x0 x1 y0 y1 [z0 z1] for G2)."""
+    if kind == "g1":
+        c = [0, 1, 0] if pt is None else [pt[0], pt[1], 1]
+        return c if proj else c[:2]
+    c = ([0, 0, 1, 0, 0, 0] if pt is None
+         else [pt[0][0], pt[0][1], pt[1][0], pt[1][1], 1, 0])
+    return c if proj else c[:4]
+
+
+def broadcast_lanes(kind, pt, n: int, proj: bool, device):
+    """One host point in every one of n limb-major lanes."""
+    col = fp_field().encode(np.array(_coords(kind, pt, proj), dtype=object),
+                            device=device)  # (planes, 24)
+    return col[:, :, None].expand(-1, -1, n).contiguous()
+
+
+def prefix_points(kind: str, a: int, b: int, n: int, device):
+    """Limb-major projective points (a + i·b)·G for i < n, built on the
+    device with log2(n) masked mixed adds (K2 or K4): lane i adds 2^k·b·G
+    where bit k of i is set."""
+    add = bls.g1_add if kind == "g1" else bls.g2_add
+    mul = bls.g1_mul if kind == "g1" else bls.g2_mul
+    madd = ck.madd_select_lm if kind == "g1" else ck.madd_select_g2_lm
+    acc = broadcast_lanes(kind, mul(_gen(kind), a % R_ORDER), n, True, device)
+    step = mul(_gen(kind), b % R_ORDER)
+    lane = torch.arange(n, device=device)
+    k = 0
+    while (1 << k) < n:
+        q = broadcast_lanes(kind, step, n, False, device)
+        acc = madd(acc, q, ((lane >> k) & 1).bool())
+        step = add(step, step)
+        k += 1
+    return acc
+
+
+def lm_to_am(kind: str, acc):
+    """Limb-major projective (n_proj, 24, L) -> ((L, n_aff, 24), (L,) inf)."""
+    if kind == "g1":
+        return wst.g1_proj_to_am((acc[0].T, acc[1].T, acc[2].T))
+    return wst.g2_proj_to_am(((acc[0].T, acc[1].T), (acc[2].T, acc[3].T),
+                              (acc[4].T, acc[5].T)))
+
+
+def synthetic_params(num_vars: int, n_inputs: int, d: int, seed: int,
+                     device):
+    """A proving key whose query point i is (a_q + i·b_q)·G for random a_q,
+    b_q, and whose α, β, δ are known: returns (Parameters, scalars).  Rows
+    past each query's length are infinity, as keygen pads them.  b_g1 and
+    b_g2 share their logs, as v_i(τ) is shared in a real key."""
+    rng = np.random.default_rng(seed)
+
+    def rand():
+        return int.from_bytes(rng.bytes(40), "little") % (R_ORDER - 1) + 1
+
+    sc = {name: rand() for name in ("alpha", "beta", "delta")}
+    for q in ("a", "b", "l", "h"):
+        sc[q] = (rand(), rand())
+    Np = msm_lm.msm_pad_len(max(num_vars, d - 1))
+    rows = torch.arange(Np, device=device)
+
+    def query(kind, ab, n_valid):
+        am, inf = lm_to_am(kind, prefix_points(kind, *ab, Np, device))
+        return am, inf | (rows >= n_valid)
+
+    g1, g2 = bls.G1_GEN, bls.G2_GEN
+    pk = keygen.ProvingKey(
+        alpha_g1=bls.g1_mul(g1, sc["alpha"]),
+        beta_g1=bls.g1_mul(g1, sc["beta"]),
+        beta_g2=bls.g2_mul(g2, sc["beta"]),
+        delta_g1=bls.g1_mul(g1, sc["delta"]),
+        delta_g2=bls.g2_mul(g2, sc["delta"]),
+        a_query=query("g1", sc["a"], num_vars),
+        b_g1_query=query("g1", sc["b"], num_vars),
+        b_g2_query=query("g2", sc["b"], num_vars),
+        h_query=query("g1", sc["h"], d - 1),
+        l_query=query("g1", sc["l"], num_vars - n_inputs),
+        num_inputs=n_inputs,
+    )
+    w1, w2 = keygen.g1_wire, keygen.g2_wire
+    # not a verifying key for this circuit: the queries are not the QAP's
+    vk = Groth16VerifyingKey(w1(pk.alpha_g1), w1(pk.beta_g1), w2(pk.beta_g2),
+                             w2(g2), w1(pk.delta_g1), w2(pk.delta_g2), [])
+    return keygen.Parameters(pk=pk, vk=vk), sc
+
+
+def expected_proof(z, h, n_inputs: int, sc: dict, r: int, s: int):
+    """(A, B, C) of the synthetic key from scalars alone:
+    Σ_i v_i·(a + i·b) = a·Σv_i + b·Σ i·v_i."""
+    def dot(ab, v):
+        a, b = ab
+        return (a * sum(v) + b * sum(i * x for i, x in enumerate(v))) % R_ORDER
+
+    a_s = (sc["alpha"] + dot(sc["a"], z) + r * sc["delta"]) % R_ORDER
+    b_s = (sc["beta"] + dot(sc["b"], z) + s * sc["delta"]) % R_ORDER
+    c_s = (dot(sc["l"], z[n_inputs:]) + dot(sc["h"], h) + s * a_s + r * b_s
+           - r * s * sc["delta"]) % R_ORDER
+    return (bls.g1_mul(bls.G1_GEN, a_s), bls.g2_mul(bls.G2_GEN, b_s),
+            bls.g1_mul(bls.G1_GEN, c_s))
+
+
+def _powers(x: int, n: int, device):
+    """(n, 16) Montgomery x^0..x^(n−1), by doubling the prefix."""
+    F = fr_field()
+    out = F.const_mont(1, device)[None]
+    while out.shape[0] < n:
+        step = F.const_mont(pow(x, out.shape[0], P), device)
+        out = torch.cat([out, F.mont_mul(out, step)])
+    return out[:n]
+
+
+def _limb_sum(x) -> int:
+    """Σ over rows of (N, 16) limbs, as the integer Σ_k (Σ limb_k)·2^16k."""
+    sums = x.to(torch.int64).sum(dim=0).cpu().tolist()
+    return sum(int(v) << (16 * k) for k, v in enumerate(sums))
+
+
+def circuit_at(comp: CompiledR1CS, z, d: int, rho: int, device):
+    """(a(ρ), b(ρ), c(ρ)) of the QAP straight from the circuit: the sum
+    over every term (row j, var i, coefficient k) of k·z_i·L_j(ρ), where
+    L_j(ρ) = (ρ^d − 1)/d · ω^j/(ρ − ω^j) is the Lagrange basis on H = <ω>
+    (barycentric form).  A also holds bellman's input rows a_{n+i} = z_i.
+    Reads comp.rows/vars/cids, not the prover's row plans."""
+    F = fr_field()
+    omega = pow(FR_GENERATOR, (P - 1) // d, P)
+    wpow = _powers(omega, d, device)
+    den = F.sub(F.const_mont(rho, device).expand(d, FR_LIMBS), wpow)
+    wt = F.mont_mul(wpow, F.inv_mont(den))
+    z_mont = F.to_mont(F.encode(np.array(z, dtype=object), mont=False,
+                                device=device))
+    pal = F.encode(np.array(comp.palette, dtype=object), device=device)
+    scale = ((pow(rho, d, P) - 1) * pow(d, -1, P)
+             * pow(F.R_mod_p, -1, P) % P)
+    n, ni = comp.n_constraints, comp.num_inputs
+    out = []
+    for m in range(3):
+        rows, vars_, cids = (torch.from_numpy(x.astype(np.int64)).to(device)
+                             for x in (comp.rows[m], comp.vars[m],
+                                       comp.cids[m]))
+        acc = _limb_sum(F.mont_mul(F.mont_mul(z_mont[vars_], wt[rows]),
+                                   pal[cids]))
+        if m == 0:
+            acc += _limb_sum(F.mont_mul(z_mont[:ni], wt[n:n + ni]))
+        out.append(acc * scale % P)
+    return out
+
+
+def h_identity_holds(comp: CompiledR1CS, z, h_std, d: int, rho: int) -> bool:
+    """a(ρ)·b(ρ) − c(ρ) == h(ρ)·Z(ρ), Z(ρ) = ρ^d − 1, h(ρ) = Σ_j h_j·ρ^j."""
+    F = fr_field()
+    dev = h_std.device
+    a, b, c = circuit_at(comp, z, d, rho, dev)
+    z_rho = (pow(rho, d, P) - 1) % P
+    h = _limb_sum(F.mont_mul(h_std, _powers(rho, h_std.shape[0], dev))) % P
+    return (a * b - c - h * z_rho) % P == 0
+
+
+# ------------------------------------------------------------- the phases
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def random_field_limbs(F, n: int, gen, device):
+    """(n, F.n) canonical limbs: random 16-bit limbs, top limb below p's."""
+    x = torch.randint(0, 1 << 16, (n, F.n), generator=gen, device=device,
+                      dtype=torch.int32)
+    top = (F.p >> (16 * (F.n - 1))) & 0xFFFF
+    x[:, -1] = torch.randint(0, top, (n,), generator=gen, device=device,
+                             dtype=torch.int32)
+    return x
+
+
+def check_kernel(name, size, launches, run_kernel, run_plain, nbytes, imads,
+                 reps=20):
+    """One kernel at one launch size: bit-exact against the plain version,
+    then timed.  `launches` is how often the proof launched this size."""
+    out_k = run_kernel()
+    out_p = run_plain()
+    torch.cuda.synchronize()
+    err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
+    ms = cuda_ms(run_kernel, reps)
+    plain_ms = cuda_ms(run_plain, 2)
+    bound_ms, bound_by = bound(nbytes, imads)
+    row = {"phase": "kernel", "name": name, "size": list(size),
+           "launches": launches, "max_abs_err": float(err), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(row)
+    if err != 0:
+        raise SystemExit(f"{name} at {size}: kernel disagrees with its "
+                         "plain version")
+    return row
+
+
+def summarize(rows):
+    """A kernel's per-size rows -> its times per launch averaged over the
+    proof, each size weighted by how often the proof launched it."""
+    n = sum(r["launches"] for r in rows)
+    out = {k: sum(r[k] * r["launches"] for r in rows) / n
+           for k in ("ms", "plain_ms", "bound_ms")}
+    by_bytes = sum(r["bound_ms"] * r["launches"] for r in rows
+                   if r["bound_by"] == "bytes")
+    out["bound_by"] = ("bytes" if 2 * by_bytes >= out["bound_ms"] * n
+                       else "operations")
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["library_ms"] = None
+    out["sizes"] = len(rows)
+    return out
+
+
+# per group: (kernel, wrapper, plain version, Fp multiplies per lane) for
+# affine Q, then for projective Q
+CURVE_KERNELS = {
+    "g1": ((ck.K_G1_MADD, ck.madd_select_lm, ck.madd_select_lm_plain, 11),
+           (ck.K_G1_ADD, ck.add_select_lm, ck.add_select_lm_plain, 12)),
+    "g2": ((ck.K_G2_MADD, ck.madd_select_g2_lm, ck.madd_select_g2_lm_plain,
+            33),
+           (ck.K_G2_ADD, ck.add_select_g2_lm, ck.add_select_g2_lm_plain, 36)),
+}
+
+
+def k1_operands(F, n: int, b_rows: int, gen, device):
+    """Random canonical operands of a K1 launch over n elements whose b has
+    b_rows rows, shaped as the proof hands them to the wrapper: a viewed
+    (n / b_rows, b_rows, limbs) against b (b_rows, limbs), so b repeats
+    over a's leading axis (NTT stage twiddles, constants) or not."""
+    a = random_field_limbs(F, n, gen, device)
+    b = random_field_limbs(F, b_rows, gen, device)
+    p_minus_1 = to_torch(int_to_limbs(F.p - 1, F.n), device)
+    a[-1] = p_minus_1  # (p − 1)², the largest product
+    b[-1] = p_minus_1
+    if n > 1:
+        a[0] = 0
+    return a.view(n // b_rows, b_rows, F.n), b
+
+
+def curve_operands(kind: str, n_lanes: int, gen, device):
+    """Limb-major P (projective), affine Q, projective Q and a mask over
+    n_lanes lanes: random valid points plus the cases RCB15 must handle,
+    P = identity, P = Q, P = −Q, Q = identity and masked-off lanes."""
+    lane = torch.arange(n_lanes, device=device)
+    q_proj = prefix_points(kind, 3, 5, n_lanes, device)
+    p_proj = prefix_points(kind, 7, 11, n_lanes, device)
+    q_aff = lm_to_am(kind, q_proj)[0].permute(1, 2, 0).contiguous()
+    y = slice(1, 2) if kind == "g1" else slice(2, 4)
+    ident = broadcast_lanes(kind, None, n_lanes, True, device)
+    acc = p_proj.clone()
+    acc[:, :, 0::8] = ident[:, :, 0::8]             # P = identity
+    acc[:, :, 1::8] = q_proj[:, :, 1::8]            # P = Q: doubling
+    neg = q_proj[:, :, 2::8].clone()                # P = −Q
+    neg[y] = fp_field().neg(neg[y].transpose(1, 2)).transpose(1, 2)
+    acc[:, :, 2::8] = neg
+    q_with_id = q_proj.clone()
+    q_with_id[:, :, 4::8] = ident[:, :, 4::8]       # Q = identity
+    mask = (lane % 8 != 3) & (torch.rand(
+        n_lanes, generator=gen, device=device) < 0.9)  # masked-off lanes
+    return acc, q_aff, q_with_id, mask
+
+
+def kernel_phase(sizes: dict, device):
+    """Replay every kernel at each size `sizes` (from the proof) holds."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    rows = {}
+    for F, kern in ((fr_field(), fk.K_FR), (fp_field(), fk.K_FP)):
+        per = []
+        for (n, b_rows), count in sorted(sizes[kern.name].items()):
+            a, b = k1_operands(F, n, b_rows, gen, device)
+            per.append(check_kernel(
+                kern.name, (n, b_rows), count,
+                lambda: fk.mont_mul(F, a, b),
+                lambda: fk.mont_mul_plain(F, a, b),
+                (2 * n + b_rows) * F.n * 4, n * mont_mul_imads(F.n)))
+        rows[kern.name] = summarize(per)
+
+    for kind in ("g1", "g2"):
+        kerns = CURVE_KERNELS[kind]
+        n_max = max(L for k in kerns for L, _ in sizes[k[0].name])
+        acc, q_aff, q_with_id, mask = curve_operands(kind, n_max, gen, device)
+        for (kern, api, plain, n_mul), q in zip(kerns, (q_aff, q_with_id)):
+            per = []
+            for (L, _), count in sorted(sizes[kern.name].items()):
+                acc_l = acc[:, :, :L].contiguous()
+                q_l = q[:, :, :L].contiguous()
+                mask_l = mask[:L].contiguous()
+                active = int(mask_l.sum())
+                # acc read and out written in every lane, Q read where active
+                nbytes = (L * (2 * acc.shape[0] * FP_LIMBS * 4 + 1)
+                          + active * q.shape[0] * FP_LIMBS * 4)
+                per.append(check_kernel(
+                    kern.name, (L,), count,
+                    lambda: api(acc_l, q_l, mask_l),
+                    lambda: plain(acc_l, q_l, mask_l),
+                    nbytes, active * n_mul * mont_mul_imads(FP_LIMBS),
+                    reps=10))
+            rows[kern.name] = summarize(per)
+    return rows
+
+
+def toy_phase(device):
+    params = keygen.load_parameters(TOY_KEY, device=device)
+    cs = ConstraintSystem(proving=True)
+    x, y = 3, 5
+    z = x * y % P
+    z_var = cs.alloc_input(z)
+    x_var = cs.alloc(x)
+    y_var = cs.alloc(y)
+    cs.enforce(lc((x_var, 1)), lc((y_var, 1)), lc((z_var, 1)))
+    s_var = cs.alloc(x + y)
+    cs.enforce(lc((x_var, 1), (y_var, 1)), lc((ONE, 1)), lc((s_var, 1)))
+    t0 = time.perf_counter()
+    proof = prove.create_proof(params, cs, r=7, s=11, device=device)
+    seconds = time.perf_counter() - t0
+    same = ser.dumps(proof).hex() == TOY_PROOF_HEX
+    verdicts = [groth16_verify(params.vk, inp, proof)
+                for inp in ([z], [z + 1], [z, 0])]
+    emit({"phase": "toy", "seconds": seconds, "bytes_equal_jax": same,
+          "verify_accepts_z": verdicts[0],
+          "verify_rejects_z_plus_1": not verdicts[1],
+          "verify_rejects_two_inputs": not verdicts[2]})
+    if not (same and verdicts == [True, False, False]):
+        raise SystemExit("toy proof disagrees with the JAX package")
+
+
+def real_size_setup(log_d: int, device, seed: int = ROOT_SEED):
+    """The synthetic circuit and key for a d = 2^log_d proof."""
+    n_cons = MPN_B64_CONSTRAINTS >> (22 - log_d) if log_d <= 22 else (
+        MPN_B64_CONSTRAINTS << (log_d - 22))
+    cs = SyntheticCircuit(n_cons, seed)
+    comp = cs.compiled()
+    d = qap.domain_size(n_cons, comp.num_inputs)
+    params, sc = synthetic_params(comp.num_vars, comp.num_inputs, d, seed,
+                                  device)
+    return cs, params, sc, d
+
+
+def check_real_proof(cs, params, sc, d, proof, record, r, s, rho):
+    """Every check of phase 4; returns a dict of verdicts."""
+    F = fr_field()
+    h_std = record["h_std"]
+    h_ints = [int(v) for v in np.atleast_1d(F.decode(h_std, mont=False))]
+    A, B, C = expected_proof(cs.z, h_ints, params.pk.num_inputs, sc, r, s)
+    return {
+        "a_equal_host": proof.a == keygen.g1_wire(A),
+        "b_equal_host": proof.b == keygen.g2_wire(B),
+        "c_equal_host": proof.c == keygen.g1_wire(C),
+        "h_identity": h_identity_holds(cs.compiled(), cs.z, h_std, d, rho),
+    }
+
+
+def proof_phase(log_d: int, device):
+    t0 = time.perf_counter()
+    cs, params, sc, d = real_size_setup(log_d, device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    comp = cs.compiled()
+    Np = params.pk.a_query[0].shape[0]
+    r, s = 1234567, 7654321
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    record = {}
+    t1 = time.perf_counter()
+    proof = prove.create_proof(params, cs, r=r, s=s, device=device,
+                               record=record)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t1
+    launches = _cuda.counts()
+    sizes = _cuda.sizes()
+    peak = torch.cuda.max_memory_allocated()
+    rho = int.from_bytes(np.random.default_rng(ROOT_SEED).bytes(32),
+                         "little") % P
+    checks = check_real_proof(cs, params, sc, d, proof, record, r, s, rho)
+    emit({"phase": "proof", "log_d": log_d, "d": d, "Np": Np,
+          "n_constraints": comp.n_constraints, "num_vars": comp.num_vars,
+          "n_terms": [int(a.shape[0]) for a in comp.rows],
+          "n_heavy_vals": record["n_heavy_vals"], "setup_s": setup_s,
+          "stage_s": record["seconds"], "total_s": total,
+          "max_memory_allocated": peak, "launches": launches, **checks})
+    if not all(checks.values()):
+        raise SystemExit(f"real-size proof failed its checks: {checks}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise SystemExit(f"kernels not launched by the proof: {missing}")
+    return launches, sizes
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--log-d", type=int, default=22,
+                    help="log2 of the real-size proof's domain (default 22)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi,
+          "name": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0]})
+
+    t0 = time.perf_counter()
+    logs = _cuda.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "built": sorted(logs)})
+    for src, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  [{src}] {line.strip()}", flush=True)
+
+    toy_phase(device)
+    launches, sizes = proof_phase(args.log_d, device)
+    torch.cuda.empty_cache()
+    rows = kernel_phase(sizes, device)
+
+    kernels = []
+    for name, k in _cuda.REGISTRY.items():
+        row = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"bazuka_tpu_torch/csrc/{k.source}",
+            "replaces": k.replaces, "launches": launches[name],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "sizes")},
+        })
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,6 @@
 // Montgomery arithmetic over the two BLS12-381 fields, for one element per
-// thread.  Shared by mont_mul.cu (kernel K1) and rcb15_select.cu (K2-K5).
+// thread.  Shared by mont_mul.cu (kernel K1) and, through rcb15.cuh, by
+// rcb15_select.cu (K2-K5) and curve_add.cu (K6-K7).
 //
 // Elements are NW little-endian 32-bit words (Fr: 8, Fp: 12) in registers.
 // In device memory the port keeps 16-bit limbs in int32 lanes (the JAX

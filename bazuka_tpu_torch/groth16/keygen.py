@@ -1,34 +1,73 @@
-"""Groth16 parameter types and loading (port of the host side of
-`bazuka_tpu/groth16/keygen.py`; parameter generation on the card is a later
-slice).
+"""Groth16 parameters on the card: generation, types, saving and loading
+(port of `bazuka_tpu/groth16/keygen.py`).
+
+`generate_parameters` is the reference's in-process `--dev` keygen
+(deterministic from a seed):
+  1. L_j(τ) over the domain on the host (`qap.lagrange_at`), then
+     u_i(τ), v_i(τ), w_i(τ) per variable by the sparse column evaluation
+     (`sparse.DeviceR1CS.eval_cols`: gather, K1, `index_add_`)
+  2. the per-variable scalar algebra ((βu+αv+w)/γ or /δ) as batched
+     Montgomery multiplies on the device; the h scalars τ^i·Z(τ)/δ on the
+     host
+  3. every key point is scalar·G1 or scalar·G2: the windowed fixed-base
+     multiply (`ops.weierstrass.batch_gen_mul`, 32 complete adds per
+     scalar, K6/K7 on the card) in chunks of GEN_CHUNK, each chunk turned
+     to affine by one batched Fermat inversion (K1) and written into its
+     query's rows on the device
 
 Query tensors live on the device: G1 queries as ((Np, 2, 24) int32 affine
 Montgomery limbs, (Np,) bool infinity mask), the G2 query as ((Np, 4, 24),
-(Np,)).  Singleton points are host affine tuples.
+(Np,)).  Rows past each query's length, and points at infinity, are zero
+limbs with the mask set, as the JAX package writes them.  Singleton points
+are host affine tuples.
 
-Keys written by `bazuka_tpu` load unchanged: both layouts (one `.npz`, or a
-directory of `.npy` files with `head.pkl`) pickle their header with the JAX
-package's class names, so the header is read by an unpickler that maps
-those three names to this package's copies and refuses any other class.
+Keys written by either package load in both.  Both layouts (one `.npz`, or
+a directory of narrow `.npy` files with `head.pkl`) pickle their header
+with the JAX package's class names: this package writes its three wire
+classes under those names without importing them, and reads them back with
+an unpickler that maps the names to its own classes and refuses any other
+class.  The JAX package's `backend=` and `device_queries=` options (its
+host-resident big mode) are not ported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import io
 import os
 import pickle
+import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..crypto import bls12_381 as bls
 from ..device import resolve_device
+from ..fields.limbs import FP_LIMBS, fp_field, fr_field, to_numpy
+from ..ops import weierstrass as wst
+from ..ops.msm_lm import msm_pad_len
 from ..zk.proof import G1Wire, G2Wire, Groth16VerifyingKey
-from .sparse import DeviceR1CS
+from . import qap
+from .sparse import DeviceR1CS, encode_mont
 
-_QUERY_NAMES = ("a_query", "b_g1_query", "l_query", "h_query", "b_g2_query")
+R = bls.R
+
+GEN_CHUNK = 1 << 16  # fixed-base multiplies per chunk (bounds live memory)
+
+
+def _rng_scalars(seed: bytes, n: int, tag: bytes) -> List[int]:
+    """Deterministic nonzero Fr scalars from a seed (SHA3 stream)."""
+    out = []
+    counter = 0
+    while len(out) < n:
+        h = hashlib.sha3_256(seed + tag + counter.to_bytes(8, "little")).digest()
+        v = int.from_bytes(h, "little") % R
+        if v != 0:
+            out.append(v)
+        counter += 1
+    return out
 
 
 @dataclass
@@ -71,6 +110,260 @@ def wire_g1(w: G1Wire) -> bls.G1Point:
 
 def wire_g2(w: G2Wire) -> bls.G2Point:
     return None if w.infinity else (tuple(w.x), tuple(w.y))
+
+
+# ------------------------------------------------------------ generation
+
+
+def _gen_mul_am(scalars_std, kind: str, out_am=None, out_inf=None):
+    """Streamed fixed-base multiply (the port of `_gen_mul_am_host`):
+    (M, 16) standard-form scalars -> point-major affine rows.  Each
+    GEN_CHUNK batch is multiplied, inverted to affine and written into
+    rows [lo, lo + n) of out_am/out_inf, which stay on the scalars' device
+    (allocated if not given).  The JAX package pads every chunk to a fixed
+    shape for its compiled programs; these kernels take any lane count, so
+    the last chunk runs at its own size.  Returns (out_am, out_inf)."""
+    M = int(scalars_std.shape[0])
+    dev = scalars_std.device
+    if out_am is None:
+        n_aff = 2 if kind == "g1" else 4
+        out_am = torch.zeros((M, n_aff, FP_LIMBS), dtype=torch.int32,
+                             device=dev)
+        out_inf = torch.ones((M,), dtype=torch.bool, device=dev)
+    to_am = wst.g1_proj_to_am if kind == "g1" else wst.g2_proj_to_am
+    for lo in range(0, M, GEN_CHUNK):
+        am, inf = to_am(wst.batch_gen_mul(scalars_std[lo:lo + GEN_CHUNK],
+                                          kind))
+        out_am[lo:lo + am.shape[0]] = am
+        out_inf[lo:lo + am.shape[0]] = inf
+    return out_am, out_inf
+
+
+def _decode_g1_am(am, inf) -> List[bls.G1Point]:
+    """Point-major affine Montgomery rows -> host affine points."""
+    F = fp_field()
+    xs = np.atleast_1d(F.decode(am[:, 0, :]))
+    ys = np.atleast_1d(F.decode(am[:, 1, :]))
+    return [None if i else (int(x), int(y))
+            for x, y, i in zip(xs, ys, np.asarray(inf.cpu()))]
+
+
+def _decode_g2_am(am, inf) -> List[bls.G2Point]:
+    F = fp_field()
+    c = [np.atleast_1d(F.decode(am[:, k, :])) for k in range(4)]
+    return [None if i else ((int(c[0][j]), int(c[1][j])),
+                            (int(c[2][j]), int(c[3][j])))
+            for j, i in enumerate(np.asarray(inf.cpu()))]
+
+
+def generate_parameters(cs, seed: bytes = b"bazuka-tpu-dev", device="cuda",
+                        record: Optional[dict] = None) -> Parameters:
+    """Deterministic Groth16 setup for the circuit recorded in `cs`
+    (anything with `compiled()`), equal to the JAX package's
+    `generate_parameters(cs, seed)`.  If `record` is a dict it is filled
+    with per-stage seconds (the card synchronised at each stage boundary)
+    under "seconds"."""
+    dev = resolve_device(device)
+    sync = record is not None and dev.type == "cuda"
+    t_last = [time.perf_counter()]
+    stages = {}
+
+    def tick(name):
+        if record is None:
+            return
+        if sync:
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        stages[name] = now - t_last[0]
+        t_last[0] = now
+
+    comp = cs.compiled()
+    dr = DeviceR1CS(comp, dev)
+    num_vars, n_inputs = comp.num_vars, comp.num_inputs
+    tau, alpha, beta, gamma, delta = _rng_scalars(seed, 5, b"toxic")
+    d = qap.domain_size(comp.n_constraints, n_inputs)
+    F = fr_field()
+    tick("setup")
+
+    # Lagrange values at tau over the size-d domain (host), then the
+    # column evaluation on the device
+    L = qap.lagrange_at(tau, d)
+    tick("lagrange_host")
+    L_mont = encode_mont(L[: dr.n_rows], dev)
+    del L
+    u_m, v_m, w_m = dr.eval_cols(L_mont)  # (num_vars, 16) mont each
+    del L_mont
+    tick("col_eval")
+
+    gamma_inv = pow(gamma, -1, R)
+    delta_inv = pow(delta, -1, R)
+    z_tau = (pow(tau, d, R) - 1) % R
+
+    # combo_i = beta*u_i + alpha*v_i + w_i; then /gamma (inputs), /delta (aux)
+    combo = F.add(F.add(F.mont_mul(u_m, F.const_mont(beta, dev)[None]),
+                        F.mont_mul(v_m, F.const_mont(alpha, dev)[None])), w_m)
+    ic_std = F.from_mont(F.mont_mul(combo[:n_inputs],
+                                    F.const_mont(gamma_inv, dev)[None]))
+    l_std = F.from_mont(F.mont_mul(combo[n_inputs:],
+                                   F.const_mont(delta_inv, dev)[None]))
+    u_std = F.from_mont(u_m)
+    v_std = F.from_mont(v_m)
+    del u_m, v_m, w_m, combo
+    tick("scalar_algebra")
+
+    # h query scalars: tau^i * Z(tau)/delta, i in 0..d-2 (host geometric)
+    h_scalars = []
+    acc = z_tau * delta_inv % R
+    for _ in range(d - 1):
+        h_scalars.append(acc)
+        acc = acc * tau % R
+    h_std = F.encode(np.array(h_scalars, dtype=object), mont=False,
+                     device=dev)
+    del h_scalars
+    tick("h_scalars_host")
+
+    # every query has one padded length, the prover's MSM length; each is
+    # written chunk by chunk into its device tensors (pad rows: infinity)
+    Np = msm_pad_len(max(num_vars, d - 1))
+
+    def make_query(scalars, n_aff, kind):
+        am = torch.zeros((Np, n_aff, FP_LIMBS), dtype=torch.int32, device=dev)
+        inf = torch.ones((Np,), dtype=torch.bool, device=dev)
+        _gen_mul_am(scalars, kind, am, inf)
+        return (am, inf)
+
+    def head(vals):
+        return F.encode(np.array(vals, dtype=object), mont=False, device=dev)
+
+    alpha_g1, beta_g1, delta_g1 = _decode_g1_am(
+        *_gen_mul_am(head([alpha, beta, delta]), "g1"))
+    ic_pts = _decode_g1_am(*_gen_mul_am(ic_std, "g1"))
+    tick("g1_head_ic")
+    a_query = make_query(u_std, 2, "g1")
+    tick("a_query")
+    b_g1_query = make_query(v_std, 2, "g1")
+    tick("b_g1_query")
+    l_query = make_query(l_std, 2, "g1")
+    tick("l_query")
+    h_query = make_query(h_std, 2, "g1")
+    del h_std
+    tick("h_query")
+
+    # G2: [beta, gamma, delta] head + the v tail
+    beta_g2, gamma_g2, delta_g2 = _decode_g2_am(
+        *_gen_mul_am(head([beta, gamma, delta]), "g2"))
+    b_g2_query = make_query(v_std, 4, "g2")
+    tick("g2_head_b_g2_query")
+
+    pk = ProvingKey(
+        alpha_g1=alpha_g1,
+        beta_g1=beta_g1,
+        beta_g2=beta_g2,
+        delta_g1=delta_g1,
+        delta_g2=delta_g2,
+        a_query=a_query,
+        b_g1_query=b_g1_query,
+        b_g2_query=b_g2_query,
+        h_query=h_query,
+        l_query=l_query,
+        num_inputs=n_inputs,
+    )
+    vk = Groth16VerifyingKey(
+        alpha_g1=g1_wire(alpha_g1),
+        beta_g1=g1_wire(beta_g1),
+        beta_g2=g2_wire(beta_g2),
+        gamma_g2=g2_wire(gamma_g2),
+        delta_g1=g1_wire(delta_g1),
+        delta_g2=g2_wire(delta_g2),
+        ic=[g1_wire(p) for p in ic_pts],
+    )
+    if record is not None:
+        record["seconds"] = stages
+    return Parameters(pk=pk, vk=vk, dev_r1cs=dr)
+
+
+# ------------------------------------------------------------ persistence
+
+_QUERY_NAMES = ("a_query", "b_g1_query", "l_query", "h_query", "b_g2_query")
+
+# the JAX package's module and name of each wire class in a key header
+_JAX_NAMES = {
+    Groth16VerifyingKey: ("bazuka_tpu.zk.proof", "Groth16VerifyingKey"),
+    G1Wire: ("bazuka_tpu.zk.proof", "G1Wire"),
+    G2Wire: ("bazuka_tpu.zk.proof", "G2Wire"),
+}
+
+
+class _HeadPickler(pickle._Pickler):
+    """Writes this package's three wire classes under the JAX package's
+    names (the mirror of `_HeadUnpickler`), without importing that
+    package, so a header comes out byte for byte as `bazuka_tpu` pickles
+    it; refuses every other class.  The pure-Python pickler is used because
+    it lets `save_global` be replaced; it writes the same bytes as the C
+    pickler."""
+
+    def save_global(self, obj, name=None):
+        names = _JAX_NAMES.get(obj)
+        if names is None:
+            raise pickle.PicklingError(f"refusing {obj!r} in a key header")
+        if self.proto < 4:
+            raise pickle.PicklingError("key headers use protocol 4 or above")
+        self.save(names[0])
+        self.save(names[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def _dump_head(head: dict) -> bytes:
+    buf = io.BytesIO()
+    _HeadPickler(buf, pickle.DEFAULT_PROTOCOL).dump(head)
+    return buf.getvalue()
+
+
+def _pk_head(params: Parameters) -> dict:
+    pk = params.pk
+    return {
+        "alpha_g1": pk.alpha_g1,
+        "beta_g1": pk.beta_g1,
+        "beta_g2": pk.beta_g2,
+        "delta_g1": pk.delta_g1,
+        "delta_g2": pk.delta_g2,
+        "num_inputs": pk.num_inputs,
+        "vk": params.vk,
+    }
+
+
+def _narrow(query):
+    """(int32 limbs, bool mask) -> (uint16 limbs, uint8 flags) on the host:
+    the JAX package's on-disk form of a key at most 2^22 long."""
+    am, inf = query
+    return to_numpy(am).astype(np.uint16), inf.cpu().numpy().astype(np.uint8)
+
+
+def save_parameters(params: Parameters, path: str) -> None:
+    """Serialize Parameters as `bazuka_tpu.groth16.keygen.save_parameters`
+    does: the query tensors (narrow: uint16 limb payloads, uint8 flags) and
+    a pickled header with the host singleton points and the VK.
+
+    Two layouts by `path`:
+      * `*.npz` — one zip archive;
+      * anything else — a directory of `.npy` files and `head.pkl`, which
+        loads back memory-mapped."""
+    head = _dump_head(_pk_head(params))
+    if path.endswith(".npz"):
+        arrs = {"head": np.frombuffer(head, np.uint8)}
+        for name in _QUERY_NAMES:
+            arrs[name + "_am"], arrs[name + "_inf"] = _narrow(
+                getattr(params.pk, name))
+        np.savez(path, **arrs)
+        return
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "head.pkl"), "wb") as f:
+        f.write(head)
+    for name in _QUERY_NAMES:
+        am, inf = _narrow(getattr(params.pk, name))
+        np.save(os.path.join(path, name + "_am.npy"), am)
+        np.save(os.path.join(path, name + "_inf.npy"), inf)
 
 
 # ------------------------------------------------------------ loading

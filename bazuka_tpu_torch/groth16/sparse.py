@@ -1,13 +1,17 @@
-"""Sparse R1CS row evaluation a_j = Σ_i A[j,i]·z_i on the device (port of
-`bazuka_tpu/groth16/sparse.py`: `DeviceR1CS` row plans and `encode_mont`).
+"""Sparse R1CS evaluation on the device (port of
+`bazuka_tpu/groth16/sparse.py`: `DeviceR1CS` and `encode_mont`):
 
-Per matrix: gather the witness and palette operands of every term, one
-batched Montgomery multiply (kernel K1 on the card), then a segmented sum.
+  * row evaluation    a_j = Σ_i A[j,i]·z_i       (per proof, prove.py)
+  * column evaluation u_i(τ) = Σ_j A[j,i]·L_j(τ)  (once, keygen.py)
+
+Both are one plan per matrix: gather the table and palette operands of
+every term, one batched Montgomery multiply (kernel K1 on the card), then a
+segmented sum over rows or over columns.
 The JAX version sums in uint32 with a two-level split to avoid overflow;
 here the products' 16-bit limbs are summed with `index_add_` into int64, so
-one level holds up to 2^31 terms per row (limb sums < 2^47).  Integer adds
-are exact in any order, so atomics on the card give the same result every
-run.  The int64 sums fold back to canonical Montgomery form with three
+one level holds up to 2^31 terms per segment (limb sums < 2^47; the densest
+segment is the ONE column, about 1.6M terms at d = 2^22).  Integer adds are
+exact in any order, so atomics on the card give the same result every run.  The int64 sums fold back to canonical Montgomery form with three
 multiplies: a limb sum s = lo + 2^16·mid + 2^32·hi, and
 lo·(R mod p), mid·(2^16·R mod p), hi·(2^32·R mod p) are each REDC'd to the
 residue of their part.
@@ -49,7 +53,7 @@ class _MatPlan:
     def __init__(self, op_idx, cids, seg_ids, n_seg, device):
         counts = np.bincount(seg_ids, minlength=n_seg) if len(seg_ids) else [0]
         if int(np.max(counts)) >= 1 << 31:
-            raise ValueError("a row holds 2^31 terms or more")
+            raise ValueError("a segment holds 2^31 terms or more")
         self.T = int(op_idx.shape[0])
         self.n_seg = n_seg
         self.device = device
@@ -98,7 +102,10 @@ class DeviceR1CS:
                 vars_ = np.concatenate([vars_, ext_vars])
                 cids = np.concatenate([cids, ext_cids])
             self._mats.append((rows, vars_, cids))
+        # plans are built lazily: the prover needs only row plans, keygen
+        # only column plans
         self._row_plans: List[_MatPlan] = []
+        self._col_plans: List[_MatPlan] = []
 
     @property
     def row_plans(self):
@@ -109,9 +116,23 @@ class DeviceR1CS:
             ]
         return self._row_plans
 
+    @property
+    def col_plans(self):
+        if not self._col_plans:
+            self._col_plans = [
+                _MatPlan(r, c, v, self.c.num_vars, self.device)
+                for r, v, c in self._mats
+            ]
+        return self._col_plans
+
     def eval_rows(self, z_mont):
         """z_mont: (num_vars, 16) mont limbs -> 3x(n_rows, 16) mont evals."""
         return tuple(p.eval(z_mont, self.pal_mont) for p in self.row_plans)
+
+    def eval_cols(self, L_mont):
+        """L_mont: (n_rows, 16) mont Lagrange values at τ -> u, v, w per
+        variable, 3x(num_vars, 16) mont limbs."""
+        return tuple(p.eval(L_mont, self.pal_mont) for p in self.col_plans)
 
 
 def encode_mont(vals, device="cuda"):

@@ -28,8 +28,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-HEADERS = ("mont.cuh",)
-SOURCES = ("mont_mul.cu", "rcb15_select.cu")
+HEADERS = ("mont.cuh", "rcb15.cuh")
+SOURCES = ("mont_mul.cu", "rcb15_select.cu", "curve_add.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

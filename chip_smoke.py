@@ -3,7 +3,7 @@
 check it.
 
     python3 chip_smoke.py              # d = Np = 2^22 (the default)
-    python3 chip_smoke.py --log-d 20   # a smaller real-size proof
+    python3 chip_smoke.py --log-d 20   # smaller real-size proof and key
 
 Phases, each printed as one JSON line:
   1. device   card name and power limit (nvidia-smi), torch and CUDA versions
@@ -19,14 +19,26 @@ Phases, each printed as one JSON line:
               h(x) satisfies a(ρ)·b(ρ) − c(ρ) = h(ρ)·Z(ρ) at a random ρ, with
               a(ρ), b(ρ), c(ρ) summed over the circuit's own terms
               (barycentric Lagrange basis; neither the port's row plans nor
-              its NTT).  The kernels' launch counts and sizes are recorded.
-  5. kernel   each kernel replayed at every size the proof launched it with,
-              on fresh random operands (plus the edge cases), against its
-              plain PyTorch version: bit-identical limbs, its time, the plain
-              version's time and the card's bound, per size and averaged
-              over the proof's launches
-Then the `{"kernels": [...]}` line (launch counts from phase 4's proof,
-times averaged over its launches) and the last line
+              its NTT).  The kernels' launch counts and sizes are recorded;
+              K1-K5 must each have run.
+  5. keygen   `generate_parameters` on the card: the key of the same
+              synthetic MPN-b64-sized circuit at d = Np = 2^22, from a cold
+              start (its launch counts and sizes are recorded; K6, K7 and K1
+              must each have run), with 16 rows of each query (first and
+              last valid row, a pad row) and every VK point equal to the
+              generator times a scalar recomputed on the host from the
+              circuit's own terms, and a proof under that key that
+              groth16_verify accepts for [x] and rejects for [x + 1]; then
+              the toy multiply circuit at seed b"test", which must equal the
+              committed key (all ten query arrays, the head points, the VK's
+              wire bytes).
+  6. kernel   each kernel replayed at every size phases 4 and 5 launched it
+              with, on fresh random operands (plus the edge cases), against
+              its plain PyTorch version: bit-identical limbs, its time, the
+              plain version's time and the card's bound, per size and
+              averaged over the phases' launches
+Then the `{"kernels": [...]}` line (launch counts of the phases that ran
+each kernel, times averaged over their launches) and the last line
 `{"ok": true, "device": {...}}`.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits with
 code 2.
@@ -345,6 +357,160 @@ def h_identity_holds(comp: CompiledR1CS, z, h_std, d: int, rho: int) -> bool:
     return (a * b - c - h * z_rho) % P == 0
 
 
+# ------------------------------------------------------------ keygen checks
+
+QUERY_NAMES = ("a_query", "b_g1_query", "l_query", "h_query", "b_g2_query")
+HEAD_FIELDS = ("alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2",
+               "num_inputs")
+
+
+def key_equals_file(params, path: str) -> dict:
+    """A generated key against a key file: each query's limbs and flags,
+    the head points and the VK's wire bytes."""
+    ref = keygen.load_parameters(path, device=params.pk.a_query[0].device)
+    out = {}
+    for name in QUERY_NAMES:
+        (am, inf), (ram, rinf) = getattr(params.pk, name), getattr(ref.pk, name)
+        out[name] = bool(torch.equal(am, ram) and torch.equal(inf, rinf))
+    out["head"] = all(getattr(params.pk, f) == getattr(ref.pk, f)
+                      for f in HEAD_FIELDS)
+    out["vk_bytes"] = ser.dumps(params.vk) == ser.dumps(ref.vk)
+    return out
+
+
+def lagrange_host(rows, tau: int, d: int) -> dict:
+    """{j: L_j(τ)} for the given rows from the barycentric form
+    ω^j (τ^d − 1) / (d (τ − ω^j)).  ω^j is a running product over the
+    sorted rows and the denominators are inverted together (prefix
+    products, one inversion): the ONE column touches ~1.6M rows at
+    d = 2^22."""
+    omega = pow(FR_GENERATOR, (P - 1) // d, P)
+    scale = (pow(tau, d, P) - 1) * pow(d, -1, P) % P
+    js = np.unique(rows).tolist()
+    steps = {}
+    ws, wj, prev = [], 1, 0
+    for j in js:
+        gap = j - prev
+        if gap not in steps:
+            steps[gap] = pow(omega, gap, P)
+        wj = wj * steps[gap] % P
+        ws.append(wj)
+        prev = j
+    prefix = [1]
+    for w in ws:
+        prefix.append(prefix[-1] * (tau - w) % P)
+    inv = pow(prefix[-1], -1, P)
+    out = {}
+    for i in range(len(js) - 1, -1, -1):
+        out[js[i]] = ws[i] * scale % P * (prefix[i] * inv % P) % P
+        inv = inv * (tau - ws[i]) % P
+    return out
+
+
+def column_scalars(comp: CompiledR1CS, var_ids, tau: int, d: int) -> dict:
+    """{var: [u, v, w]} at τ, each summed over its own column's terms
+    (A with bellman's input rows a_{n+i} = z_i)."""
+    need = np.array(sorted(set(var_ids)), dtype=np.int64)
+    n, ni = comp.n_constraints, comp.num_inputs
+    terms = []
+    for m in range(3):
+        sel = np.isin(comp.vars[m], need)
+        terms.append((comp.rows[m][sel], comp.vars[m][sel], comp.cids[m][sel]))
+    ext = n + need[need < ni]
+    L = lagrange_host(np.concatenate([t[0] for t in terms] + [ext]), tau, d)
+    out = {int(v): [0, 0, 0] for v in need}
+    for m, (rows, vars_, cids) in enumerate(terms):
+        for j, v, c in zip(rows.tolist(), vars_.tolist(), cids.tolist()):
+            out[v][m] = (out[v][m] + comp.palette[c] * L[j]) % P
+    for v in need[need < ni].tolist():
+        out[v][0] = (out[v][0] + L[n + v]) % P
+    return out
+
+
+def sample_rows(n_valid: int, n_rows: int, k: int, rng) -> list:
+    """Up to k row indices: the first and last valid row, one pad row if
+    there is one, the rest random valid rows."""
+    fixed = {0, n_valid - 1}
+    if n_rows > n_valid:
+        fixed.add(int(rng.integers(n_valid, n_rows)))
+    rest = rng.choice(n_valid, size=min(k, n_valid), replace=False).tolist()
+    for i in rest:
+        if len(fixed) >= k:
+            break
+        fixed.add(int(i))
+    return sorted(fixed)
+
+
+def gen_mul(kind: str, scalar: int):
+    return (bls.g1_mul if kind == "g1" else bls.g2_mul)(_gen(kind), scalar)
+
+
+def key_points(kind: str, query, idx) -> list:
+    """Host affine points of rows idx of a (limbs, inf) query; a row at
+    infinity must hold zero limbs (it reads as "bad" otherwise)."""
+    am, inf = query
+    sel = torch.tensor(idx, device=am.device)
+    rows = am[sel]
+    decode = keygen._decode_g1_am if kind == "g1" else keygen._decode_g2_am
+    zero = (rows == 0).flatten(1).all(dim=1).tolist()
+    return [p if p is not None or z else "bad"
+            for p, z in zip(decode(rows, inf[sel]), zero)]
+
+
+def key_spot_check(comp: CompiledR1CS, params, seed: bytes, d: int,
+                   k: int = 16, rng_seed: int = ROOT_SEED):
+    """Rows of each query and every VK point of a generated key against
+    the generator times a scalar recomputed on the host: τ, α, β, γ, δ
+    from the seed, u_i(τ), v_i(τ), w_i(τ) from column i's own terms, and
+    τ^i·Z(τ)/δ for the h query.  Returns ({check: bool}, rows sampled)."""
+    tau, alpha, beta, gamma, delta = keygen._rng_scalars(seed, 5, b"toxic")
+    pk, vk = params.pk, params.vk
+    ni, nv = comp.num_inputs, comp.num_vars
+    n_rows = pk.a_query[0].shape[0]
+    valid = {"a_query": nv, "b_g1_query": nv, "b_g2_query": nv,
+             "l_query": nv - ni, "h_query": d - 1}
+    rng = np.random.default_rng(rng_seed)
+    idx = {name: sample_rows(valid[name], n_rows, k, rng)
+           for name in QUERY_NAMES}
+    need = set(range(ni))
+    for name in ("a_query", "b_g1_query", "b_g2_query"):
+        need |= {i for i in idx[name] if i < nv}
+    need |= {ni + i for i in idx["l_query"] if i < nv - ni}
+    cols = column_scalars(comp, need, tau, d)
+    g_inv, d_inv = pow(gamma, -1, P), pow(delta, -1, P)
+    z_tau = (pow(tau, d, P) - 1) % P
+
+    def combo(v):
+        u, vv, w = cols[v]
+        return (beta * u + alpha * vv + w) % P
+
+    scalar = {
+        "a_query": lambda i: cols[i][0],
+        "b_g1_query": lambda i: cols[i][1],
+        "b_g2_query": lambda i: cols[i][1],
+        "l_query": lambda i: combo(ni + i) * d_inv % P,
+        "h_query": lambda i: pow(tau, i, P) * z_tau % P * d_inv % P,
+    }
+    out = {}
+    for name in QUERY_NAMES:
+        kind = "g2" if name == "b_g2_query" else "g1"
+        want = [gen_mul(kind, scalar[name](i)) if i < valid[name] else None
+                for i in idx[name]]
+        out[name] = key_points(kind, getattr(pk, name), idx[name]) == want
+    w1, w2 = keygen.g1_wire, keygen.g2_wire
+    out["vk_ic"] = vk.ic == [w1(gen_mul("g1", combo(v) * g_inv % P))
+                             for v in range(ni)]
+    out["vk_head"] = (
+        (vk.alpha_g1, vk.beta_g1, vk.delta_g1)
+        == tuple(w1(gen_mul("g1", x)) for x in (alpha, beta, delta))
+        and (vk.beta_g2, vk.gamma_g2, vk.delta_g2)
+        == tuple(w2(gen_mul("g2", x)) for x in (beta, gamma, delta))
+        and (w1(pk.alpha_g1), w1(pk.beta_g1), w1(pk.delta_g1),
+             w2(pk.beta_g2), w2(pk.delta_g2))
+        == (vk.alpha_g1, vk.beta_g1, vk.delta_g1, vk.beta_g2, vk.delta_g2))
+    return out, sum(len(v) for v in idx.values())
+
+
 # ------------------------------------------------------------- the phases
 
 
@@ -427,6 +593,19 @@ CURVE_KERNELS = {
 }
 
 
+# K6/K7: (kernel, wrapper, plain version, group, Fp multiplies per lane)
+FULL_ADD_KERNELS = (
+    (ck.K_G1_FULL, ck.g1_add_lm, ck.g1_add_lm_plain, "g1", 12),
+    (ck.K_G2_FULL, ck.g2_add_lm, ck.g2_add_lm_plain, "g2", 36),
+)
+FULL_ADD_NAMES = tuple(k[0].name for k in FULL_ADD_KERNELS)
+K1_NAMES = (fk.K_FR.name, fk.K_FP.name)
+# the kernels each driven path must have launched
+PROOF_KERNELS = K1_NAMES + tuple(k[0].name for group in CURVE_KERNELS.values()
+                                 for k in group)
+KEYGEN_KERNELS = K1_NAMES + FULL_ADD_NAMES
+
+
 def k1_operands(F, n: int, b_rows: int, gen, device):
     """Random canonical operands of a K1 launch over n elements whose b has
     b_rows rows, shaped as the proof hands them to the wrapper: a viewed
@@ -466,7 +645,8 @@ def curve_operands(kind: str, n_lanes: int, gen, device):
 
 
 def kernel_phase(sizes: dict, device):
-    """Replay every kernel at each size `sizes` (from the proof) holds."""
+    """Replay every kernel at each size `sizes` (from the driven paths)
+    holds."""
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     rows = {}
@@ -502,13 +682,43 @@ def kernel_phase(sizes: dict, device):
                     nbytes, active * n_mul * mont_mul_imads(FP_LIMBS),
                     reps=10))
             rows[kern.name] = summarize(per)
+
+    for kern, api, plain, kind, n_mul in FULL_ADD_KERNELS:
+        n_max = max(L for L, _ in sizes[kern.name])
+        # P: identity, P = Q, P = −Q in some lanes; Q: identity in others;
+        # Z ≠ 1 on both sides elsewhere
+        p_pts, _, q_pts, _ = curve_operands(kind, n_max, gen, device)
+        per = []
+        for (L, _), count in sorted(sizes[kern.name].items()):
+            p_l = p_pts[:, :, :L].contiguous()
+            q_l = q_pts[:, :, :L].contiguous()
+            per.append(check_kernel(
+                kern.name, (L,), count,
+                lambda: api(p_l, q_l), lambda: plain(p_l, q_l),
+                3 * L * p_pts.shape[0] * FP_LIMBS * 4,
+                L * n_mul * mont_mul_imads(FP_LIMBS), reps=10))
+        rows[kern.name] = summarize(per)
     return rows
 
 
-def toy_phase(device):
-    params = keygen.load_parameters(TOY_KEY, device=device)
+def merge_phases(*phases):
+    """Launch counts and sizes of several phases, summed per kernel."""
+    launches = {name: sum(p[0][name] for p in phases)
+                for name in _cuda.REGISTRY}
+    sizes = {}
+    for name in _cuda.REGISTRY:
+        merged = {}
+        for _, sz in phases:
+            for key, count in sz[name].items():
+                merged[key] = merged.get(key, 0) + count
+        sizes[name] = merged
+    return launches, sizes
+
+
+def toy_circuit(x: int = 3, y: int = 5):
+    """The committed toy key's circuit: public z = x·y, witness x, y and
+    s = x + y (2 constraints).  Returns (cs, z)."""
     cs = ConstraintSystem(proving=True)
-    x, y = 3, 5
     z = x * y % P
     z_var = cs.alloc_input(z)
     x_var = cs.alloc(x)
@@ -516,6 +726,12 @@ def toy_phase(device):
     cs.enforce(lc((x_var, 1)), lc((y_var, 1)), lc((z_var, 1)))
     s_var = cs.alloc(x + y)
     cs.enforce(lc((x_var, 1), (y_var, 1)), lc((ONE, 1)), lc((s_var, 1)))
+    return cs, z
+
+
+def toy_phase(device):
+    params = keygen.load_parameters(TOY_KEY, device=device)
+    cs, z = toy_circuit()
     t0 = time.perf_counter()
     proof = prove.create_proof(params, cs, r=7, s=11, device=device)
     seconds = time.perf_counter() - t0
@@ -530,10 +746,16 @@ def toy_phase(device):
         raise SystemExit("toy proof disagrees with the JAX package")
 
 
+def constraints_for(log_d: int) -> int:
+    """The MPN batch-64 constraint count scaled to a d = 2^log_d domain."""
+    if log_d <= 22:
+        return MPN_B64_CONSTRAINTS >> (22 - log_d)
+    return MPN_B64_CONSTRAINTS << (log_d - 22)
+
+
 def real_size_setup(log_d: int, device, seed: int = ROOT_SEED):
     """The synthetic circuit and key for a d = 2^log_d proof."""
-    n_cons = MPN_B64_CONSTRAINTS >> (22 - log_d) if log_d <= 22 else (
-        MPN_B64_CONSTRAINTS << (log_d - 22))
+    n_cons = constraints_for(log_d)
     cs = SyntheticCircuit(n_cons, seed)
     comp = cs.compiled()
     d = qap.domain_size(n_cons, comp.num_inputs)
@@ -586,16 +808,85 @@ def proof_phase(log_d: int, device):
           "max_memory_allocated": peak, "launches": launches, **checks})
     if not all(checks.values()):
         raise SystemExit(f"real-size proof failed its checks: {checks}")
-    missing = [k for k, v in launches.items() if v == 0]
+    require_launched("proof", PROOF_KERNELS, launches)
+    return launches, sizes
+
+
+def require_launched(phase: str, names, launches: dict):
+    missing = [k for k in names if launches[k] == 0]
     if missing:
-        raise SystemExit(f"kernels not launched by the proof: {missing}")
+        raise SystemExit(f"kernels not launched by the {phase}: {missing}")
+
+
+def keygen_phase(log_d: int, device):
+    """The 2^log_d key of the synthetic circuit, counted from a cold start
+    (the window tables are built in it): spot-checked, proven under and
+    verified; then the toy key against the committed file."""
+    cs = SyntheticCircuit(constraints_for(log_d), ROOT_SEED)
+    comp = cs.compiled()
+    d = qap.domain_size(comp.n_constraints, comp.num_inputs)
+    seed = b"bazuka-tpu-dev"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    record = {}
+    t1 = time.perf_counter()
+    params = keygen.generate_parameters(cs, seed=seed, device=device,
+                                        record=record)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t1
+    launches = _cuda.counts()
+    sizes = _cuda.sizes()
+    peak = torch.cuda.max_memory_allocated()
+    Np = params.pk.a_query[0].shape[0]
+
+    t2 = time.perf_counter()
+    samples, n_sampled = key_spot_check(comp, params, seed, d)
+    check_s = time.perf_counter() - t2
+    proof_record = {}
+    t3 = time.perf_counter()
+    proof = prove.create_proof(params, cs, r=1234567, s=7654321,
+                               device=device, record=proof_record)
+    torch.cuda.synchronize()
+    proof_s = time.perf_counter() - t3
+    x = cs.z[1]
+    verdicts = (groth16_verify(params.vk, [x], proof),
+                groth16_verify(params.vk, [(x + 1) % P], proof))
+    del params
+    torch.cuda.empty_cache()
+
+    cs_toy, _ = toy_circuit()
+    t4 = time.perf_counter()
+    toy = keygen.generate_parameters(cs_toy, seed=b"test", device=device)
+    toy_s = time.perf_counter() - t4
+    toy_eq = key_equals_file(toy, TOY_KEY)
+    checks = {
+        **{f"toy_{k}": v for k, v in toy_eq.items()},
+        **samples,
+        "verify_accepts_x": verdicts[0],
+        "verify_rejects_x_plus_1": not verdicts[1],
+    }
+    emit({"phase": "keygen", "log_d": log_d, "d": d,
+          "Np": Np,
+          "n_constraints": comp.n_constraints, "num_vars": comp.num_vars,
+          "toy_s": toy_s, "stage_s": record["seconds"], "total_s": total,
+          "max_memory_allocated": peak, "launches": launches,
+          "add_sizes": {k: {str(n): c for (n, _), c in sorted(sizes[k].items())}
+                        for k in FULL_ADD_NAMES},
+          "rows_sampled": n_sampled, "spot_check_s": check_s,
+          "proof_stage_s": proof_record["seconds"], "proof_total_s": proof_s,
+          **checks})
+    if not all(checks.values()):
+        raise SystemExit(f"keygen failed its checks: {checks}")
+    require_launched("keygen", KEYGEN_KERNELS, launches)
     return launches, sizes
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-d", type=int, default=22,
-                    help="log2 of the real-size proof's domain (default 22)")
+                    help="log2 of the real-size proof's and key's domain "
+                         "(default 22)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -618,8 +909,11 @@ def main(argv=None) -> int:
                 print(f"  [{src}] {line.strip()}", flush=True)
 
     toy_phase(device)
-    launches, sizes = proof_phase(args.log_d, device)
+    proof_run = proof_phase(args.log_d, device)
+    torch.cuda.empty_cache()  # the synthetic key is gone before keygen
+    keygen_run = keygen_phase(args.log_d, device)
     torch.cuda.empty_cache()
+    launches, sizes = merge_phases(proof_run, keygen_run)
     rows = kernel_phase(sizes, device)
 
     kernels = []
@@ -629,6 +923,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"bazuka_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces, "launches": launches[name],
+            "launches_by_phase": {"proof": proof_run[0][name],
+                                  "keygen": keygen_run[0][name]},
             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms", "sizes")},

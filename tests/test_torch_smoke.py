@@ -11,6 +11,9 @@ at a tiny size on the CPU.
   tampered h fails it.
 - The h identity sums a(ρ), b(ρ), c(ρ) from the circuit's terms, so a row
   evaluation fault that keeps a∘b = c still fails it.
+- The keygen phase's spot check at d = 2^4: a key generated on the CPU
+  passes it, and fails it once one sampled query point is replaced by its
+  double.
 """
 
 import json
@@ -20,11 +23,14 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 import bazuka_tpu_torch
 import chip_smoke
-from bazuka_tpu_torch.fields.limbs import fr_field
+from bazuka_tpu_torch.crypto import bls12_381 as bls
+from bazuka_tpu_torch.fields.limbs import fp_field, fr_field
+from bazuka_tpu_torch.groth16 import keygen, qap
 from bazuka_tpu_torch.groth16.prove import _pad_rows, compute_h_mont, create_proof
 from bazuka_tpu_torch.groth16.sparse import DeviceR1CS, encode_mont
 
@@ -108,3 +114,27 @@ def test_h_identity_catches_row_eval_fault():
     assert torch.equal(F.mont_mul(evs[0], evs[1]), evs[2])
     assert not chip_smoke.h_identity_holds(comp, cs.z,
                                            compute_h_mont(evs, d), d, rho)
+
+
+def test_keygen_spot_check_at_tiny_size():
+    cs = chip_smoke.SyntheticCircuit(13, chip_smoke.ROOT_SEED)
+    comp = cs.compiled()
+    d = qap.domain_size(comp.n_constraints, comp.num_inputs)
+    assert d == 16
+    params = keygen.generate_parameters(cs, seed=b"tiny", device="cpu")
+    checks, n_rows = chip_smoke.key_spot_check(comp, params, b"tiny", d)
+    assert all(checks.values()), checks
+    assert n_rows == 4 * 16 + 14  # the l query has 13 valid rows + a pad
+    # a wrong seed's scalars disagree with every query
+    wrong, _ = chip_smoke.key_spot_check(comp, params, b"other", d)
+    assert not any(wrong.values())
+    # row 0 of the a query (always sampled; u_0 is the ONE column's sum)
+    # replaced by its double
+    am, inf = params.pk.a_query
+    assert not inf[0]
+    F = fp_field()
+    pt = (int(F.decode(am[0, 0])), int(F.decode(am[0, 1])))
+    am[0] = F.encode(np.array(bls.g1_double(pt), dtype=object), device="cpu")
+    tampered, _ = chip_smoke.key_spot_check(comp, params, b"tiny", d)
+    assert not tampered["a_query"]
+    assert all(v for k, v in tampered.items() if k != "a_query")

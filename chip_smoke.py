@@ -20,7 +20,9 @@ Phases, each printed as one JSON line:
               a(ρ), b(ρ), c(ρ) summed over the circuit's own terms
               (barycentric Lagrange basis; neither the port's row plans nor
               its NTT).  The kernels' launch counts and sizes are recorded;
-              K1-K5 must each have run.
+              K1-K5 must each have run.  Then `msm_a` and `msm_b_g2` once
+              more, timed alone and under torch.profiler (`drain_profile`
+              lines: device time by kernel, device idle share)
   5. keygen   `generate_parameters` on the card: the key of the same
               synthetic MPN-b64-sized circuit at d = Np = 2^22, from a cold
               start (its launch counts and sizes are recorded; K6, K7 and K1
@@ -64,6 +66,7 @@ from bazuka_tpu_torch.fields.limbs import (
     fp_field,
     fr_field,
     int_to_limbs,
+    ints_to_array,
     to_torch,
 )
 from bazuka_tpu_torch.groth16 import keygen, prove, qap
@@ -644,6 +647,24 @@ def curve_operands(kind: str, n_lanes: int, gen, device):
     return acc, q_aff, q_with_id, mask
 
 
+def stress_lanes(acc, q_aff, mask):
+    """Copies of a mixed add's operands with the top of the range: in lanes
+    5 mod 8 every coordinate is p − 1, in lanes 6 mod 8 the planes
+    alternate p − 1 and 0, and both are active.  These points are off the
+    curve, but RCB15 is one polynomial map, so the kernel must still equal
+    its plain version; they are where a lazy reduction would overflow."""
+    F = fp_field()
+    pm1 = to_torch(int_to_limbs(F.p - 1, F.n), acc.device)[:, None]
+    acc, q_aff, mask = acc.clone(), q_aff.clone(), mask.clone()
+    for x in (acc, q_aff):
+        x[:, :, 5::8] = pm1
+        for plane in range(x.shape[0]):
+            x[plane, :, 6::8] = pm1 if plane % 2 == 0 else 0
+    mask[5::8] = True
+    mask[6::8] = True
+    return acc, q_aff, mask
+
+
 def kernel_phase(sizes: dict, device):
     """Replay every kernel at each size `sizes` (from the driven paths)
     holds."""
@@ -665,12 +686,14 @@ def kernel_phase(sizes: dict, device):
         kerns = CURVE_KERNELS[kind]
         n_max = max(L for k in kerns for L, _ in sizes[k[0].name])
         acc, q_aff, q_with_id, mask = curve_operands(kind, n_max, gen, device)
-        for (kern, api, plain, n_mul), q in zip(kerns, (q_aff, q_with_id)):
+        stressed = stress_lanes(acc, q_aff, mask)
+        for (kern, api, plain, n_mul), (acc_k, q, mask_k) in zip(
+                kerns, (stressed, (acc, q_with_id, mask))):
             per = []
             for (L, _), count in sorted(sizes[kern.name].items()):
-                acc_l = acc[:, :, :L].contiguous()
+                acc_l = acc_k[:, :, :L].contiguous()
                 q_l = q[:, :, :L].contiguous()
-                mask_l = mask[:L].contiguous()
+                mask_l = mask_k[:L].contiguous()
                 active = int(mask_l.sum())
                 # acc read and out written in every lane, Q read where active
                 nbytes = (L * (2 * acc.shape[0] * FP_LIMBS * 4 + 1)
@@ -809,7 +832,98 @@ def proof_phase(log_d: int, device):
     if not all(checks.values()):
         raise SystemExit(f"real-size proof failed its checks: {checks}")
     require_launched("proof", PROOF_KERNELS, launches)
+    drain_profile(params, cs, device)
     return launches, sizes
+
+
+# device kernel name -> kernel row, for the profile of the drain
+PROFILED_KERNELS = (
+    ("madd_select_kernel<bz::lazy::G1Lazy", ck.K_G1_MADD.name),
+    ("madd_select_kernel<bz::lazy::G2Lazy", ck.K_G2_MADD.name),
+    ("add_select_kernel<bz::G1F", ck.K_G1_ADD.name),
+    ("add_select_kernel<bz::G2F", ck.K_G2_ADD.name),
+    ("mont_mul_kernel", "mont_mul"),
+)
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def drain_profile(params, cs, device):
+    """`msm_a` and `msm_b_g2` of the proof once more, each timed alone and
+    then under torch.profiler (CPU and CUDA activities): device time by
+    kernel (K2-K5, K1, the rest), launches, and the device's idle share,
+    one minus the union of device activity over the wall time of the call
+    closed by a synchronise.  The profiler slows the host's launches, so
+    `idle_share` takes the unprofiled call's wall time and
+    `idle_share_profiled` the profiled one's.  Where the profiler records
+    no device activity, CUDA events around the whole MSM call stand in,
+    and the phase says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pk = params.pk
+    comp = cs.compiled()
+    Np = pk.a_query[0].shape[0]
+    z_np = np.zeros((Np, 16), np.uint32)
+    z_np[:comp.num_vars] = ints_to_array(
+        [v % P for v in cs.full_assignment()], 16)
+    z_std = to_torch(z_np, device)
+    plan = msm_lm.make_dedup_plan(z_np)
+    c = prove._msm_c(Np)
+    for stage, query, run in (("msm_a", pk.a_query, msm_lm.msm_lm),
+                              ("msm_b_g2", pk.b_g2_query, msm_lm.msm_lm_g2)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(query[0], query[1], z_std, c=c, dedup_plan=plan)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        _cuda.reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(query[0], query[1], z_std, c=c, dedup_plan=plan)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        launches = {k: v for k, v in _cuda.counts().items() if v}
+        by_kernel, spans = {}, []
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            spans.append((evt.time_range.start, evt.time_range.end))
+            row = next((name for key, name in PROFILED_KERNELS
+                        if key in evt.name), "other")
+            by_kernel[row] = (by_kernel.get(row, 0.0)
+                              + evt.time_range.end - evt.time_range.start)
+        out = {"phase": "drain_profile", "stage": stage, "wall_s": wall_s,
+               "wall_profiled_s": wall_us / 1e6, "launches": launches}
+        if spans:
+            busy = _busy_us(spans)
+            out.update(source="torch.profiler",
+                       device_s={k: v / 1e6 for k, v in by_kernel.items()},
+                       device_busy_s=busy / 1e6,
+                       idle_share=1 - busy / (wall_s * 1e6),
+                       idle_share_profiled=1 - busy / wall_us)
+        else:
+            t_a = torch.cuda.Event(enable_timing=True)
+            t_b = torch.cuda.Event(enable_timing=True)
+            t_a.record()
+            run(query[0], query[1], z_std, c=c, dedup_plan=plan)
+            t_b.record()
+            t_b.synchronize()
+            out.update(source="cuda_events (the profiler saw no device "
+                              "activity)",
+                       events_s=t_a.elapsed_time(t_b) / 1e3)
+        emit(out)
 
 
 def require_launched(phase: str, names, launches: dict):
@@ -905,7 +1019,8 @@ def main(argv=None) -> int:
           "built": sorted(logs)})
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
                 print(f"  [{src}] {line.strip()}", flush=True)
 
     toy_phase(device)

@@ -1,0 +1,73 @@
+"""`kernel_ab.py`, the harness that times the add-select kernels against
+other checkouts on the card, in its parts that run without one.
+
+- Its table of kernels names K2-K5 of `_cuda.REGISTRY`, with the planes
+  and multiplies that `chip_smoke.py` replays them with.
+- It loads a checkout's `_cuda.py` on its own, and that module builds from
+  the checkout's own sources.
+- It reads registers, spills and stack from a `-Xptxas -v` log.
+- Without a CUDA device it exits 2 and prints no result.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import kernel_ab
+from bazuka_tpu_torch.ops import _cuda
+from bazuka_tpu_torch.ops import curve_kernels as ck
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_Z6kernelPi' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPi
+    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 168 registers, used 0 barriers, 368 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5otherPi' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 1024 bytes smem, 368 bytes cmem[0]
+"""
+
+
+def test_select_kernels_are_k2_to_k5():
+    specs = kernel_ab.select_kernels()
+    assert set(specs) == {ck.K_G1_MADD.name, ck.K_G1_ADD.name,
+                          ck.K_G2_MADD.name, ck.K_G2_ADD.name}
+    assert specs[ck.K_G1_MADD.name][1:] == (3, 2, 11)
+    assert specs[ck.K_G2_ADD.name][1:] == (6, 6, 36)
+    for name in specs:
+        assert _cuda.REGISTRY[name].n_ptrs == 4
+
+
+def test_loads_a_checkouts_cuda_module():
+    mod = kernel_ab.load_cuda_module("self", ROOT)
+    assert mod is not _cuda
+    assert mod.SOURCES == _cuda.SOURCES
+    assert mod.CSRC == _cuda.CSRC
+    assert mod.lib_path("madd_select.cu") == _cuda.lib_path("madd_select.cu")
+    assert mod.REGISTRY == {}
+
+
+def test_reads_ptxas_log():
+    rows = kernel_ab.ptxas_kernels(PTXAS_LOG)
+    assert rows == [
+        {"function": "_Z6kernelPi", "stack_frame": 16, "spill_stores": 16,
+         "registers": 168, "smem": 0},
+        {"function": "_Z5otherPi", "stack_frame": 0, "spill_stores": 0,
+         "registers": 40, "smem": 1024},
+    ]
+
+
+def test_exits_2_without_cuda():
+    res = subprocess.run([sys.executable, "kernel_ab.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 2
+    assert '"ok"' not in res.stdout

@@ -1,9 +1,9 @@
 """The port stands alone, and `chip_smoke.py`'s real-size proof phase holds
 at a tiny size on the CPU.
 
-- Importing every `bazuka_tpu_torch` module and `chip_smoke` adds no `jax`
-  and no `bazuka_tpu` module to `sys.modules` (compared before and after,
-  since a host may pre-import jax).
+- Importing every `bazuka_tpu_torch` module, `chip_smoke` and `kernel_ab`
+  adds no `jax` and no `bazuka_tpu` module to `sys.modules` (compared
+  before and after, since a host may pre-import jax).
 - `chip_smoke.py` exits non-zero and prints no result without a CUDA
   device, and alone in a directory without the package.
 - The real-size proof phase at d = 2^6: the synthetic circuit and known-log
@@ -48,7 +48,7 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'kernel_ab']:\n"
         "    importlib.import_module(m)\n"
         "added = sorted(set(sys.modules) - before)\n"
         "print(json.dumps(added))\n"

@@ -8,7 +8,7 @@
 //   K7 _g2_add_call (API pallas_g2_add)
 // which `weierstrass.proj_add` reaches on keygen's path: the fixed-base
 // window table and the 32 window adds per scalar of `batch_gen_mul`.  The
-// field adapters and the formula are rcb15.cuh's, shared with K2-K5.
+// field adapters and the formula are rcb15.cuh's.
 //
 // Layout: limb-major (planes, 24, L) int32 with 16-bit payloads, P, Q and
 // out all projective (3 planes on G1, 6 on G2).  One thread per lane,
@@ -17,9 +17,10 @@
 // What bounds it on an H100: per lane K6 does 12 Fp multiplies (7056 IMAD
 // at 588 each) against 864 bytes moved, K7 36 (21168 IMAD) against 1728
 // bytes; at 16.7e12 IMAD/s and 3.35 TB/s both are bound by the integer
-// multiplies.  The simple design is K3/K5's without the mask: one thread
-// holds a whole point pair, so K7 meets the 255-register cap and spills,
-// as K5 does.
+// multiplies.  The simple design: one thread holds a whole point pair on
+// mont.cuh's fully reduced multiply, so K7 meets the 255-register cap and
+// spills.  add_select.cu's lazy field code and six-slot schedule of the
+// projective add (K3/K5) are the way to redesign it.
 
 #include "rcb15.cuh"
 
@@ -31,7 +32,7 @@ __global__ void __launch_bounds__(128)
                int32_t* __restrict__ out, long long L) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= L) return;
-  bz::rcb15_add<K, false>(p, q, out, L, lane);
+  bz::rcb15_add<K>(p, q, out, L, lane);
 }
 
 template <class K>

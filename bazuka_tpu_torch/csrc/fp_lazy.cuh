@@ -1,6 +1,6 @@
 // BLS12-381 Fp arithmetic with PTX carry chains and lazy reduction, for
-// one element per thread.  Used by madd_select.cu (kernels K2 and K4); the
-// other kernels keep mont.cuh's fully reduced arithmetic.
+// one element per thread.  Used by add_select.cu (kernels K2-K5); K1, K6
+// and K7 keep mont.cuh's fully reduced arithmetic.
 //
 // Elements are 12 little-endian 32-bit words, in Montgomery form with
 // R = 2^384 (the same bits as the JAX package's 24 16-bit limbs).

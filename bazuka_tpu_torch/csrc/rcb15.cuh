@@ -1,7 +1,7 @@
 // The complete projective addition law for a = 0 short-Weierstrass curves
 // (Renes-Costello-Batina 2015, algorithm 7) over BLS12-381's G1 and G2, for
-// one point pair per thread.  Shared by rcb15_select.cu (kernels K2-K5,
-// add with a per-lane select) and curve_add.cu (K6-K7, plain add).
+// one point pair per thread.  Used by curve_add.cu (kernels K6-K7, plain
+// add); the add-select kernels K2-K5 are add_select.cu's, on fp_lazy.cuh.
 //
 // One template serves both groups: the coordinate field is Fp (G1F) or Fp2
 // with a Karatsuba multiply (G2F).  b3 = 3b is 12 on G1 and 12+12i on G2;
@@ -106,9 +106,8 @@ struct G2F {
   }
 };
 
-// out[lane] = p[lane] + q[lane].  p and out are projective (3 coordinates);
-// q is affine (2 coordinates, Z2 = 1) when AFFINE_Q, else projective.
-template <class K, bool AFFINE_Q>
+// out[lane] = p[lane] + q[lane], all projective (3 coordinates).
+template <class K>
 __device__ __forceinline__ void rcb15_add(const int32_t* __restrict__ p,
                                           const int32_t* __restrict__ q,
                                           int32_t* __restrict__ out,
@@ -122,20 +121,14 @@ __device__ __forceinline__ void rcb15_add(const int32_t* __restrict__ p,
   K::load(Y2, q, 1, L, lane);
   const E t0 = K::mul(X1, X2);
   const E t1 = K::mul(Y1, Y2);
-  E t2, t4, Y3;
   const E t3 = K::sub(K::mul(K::add(X1, Y1), K::add(X2, Y2)), K::add(t0, t1));
-  if constexpr (AFFINE_Q) {
-    // Z2 = 1: t2 = Z1, (Y1+Z1)(Y2+1) - t1 - t2 = Y1 + Z1*Y2, likewise X
-    t2 = Z1;
-    t4 = K::add(Y1, K::mul(Z1, Y2));
-    Y3 = K::add(X1, K::mul(Z1, X2));
-  } else {
-    E Z2;
-    K::load(Z2, q, 2, L, lane);
-    t2 = K::mul(Z1, Z2);
-    t4 = K::sub(K::mul(K::add(Y1, Z1), K::add(Y2, Z2)), K::add(t1, t2));
-    Y3 = K::sub(K::mul(K::add(X1, Z1), K::add(X2, Z2)), K::add(t0, t2));
-  }
+  E Z2;
+  K::load(Z2, q, 2, L, lane);
+  const E t2 = K::mul(Z1, Z2);
+  const E t4 =
+      K::sub(K::mul(K::add(Y1, Z1), K::add(Y2, Z2)), K::add(t1, t2));
+  const E Y3 =
+      K::sub(K::mul(K::add(X1, Z1), K::add(X2, Z2)), K::add(t0, t2));
   const E X3 = K::add(K::add(t0, t0), t0);
   const E t2b = K::mul_b3(t2);
   const E Z3 = K::add(t1, t2b);

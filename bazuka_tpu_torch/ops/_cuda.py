@@ -29,7 +29,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 HEADERS = ("mont.cuh", "rcb15.cuh", "fp_lazy.cuh")
-SOURCES = ("mont_mul.cu", "rcb15_select.cu", "curve_add.cu", "madd_select.cu")
+SOURCES = ("mont_mul.cu", "curve_add.cu", "add_select.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

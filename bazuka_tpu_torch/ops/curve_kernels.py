@@ -14,11 +14,10 @@ K6-K7 add with no select, out = P + Q, all projective:
 
 K2-K5 replace the Pallas kernels `_g1_madd_select_call`,
 `_g1_add_select_call`, `_g2_madd_select_call` and `_g2_add_select_call` of
-`bazuka_tpu/ops/pallas_msm.py` (CUDA sources `csrc/madd_select.cu` for K2/K4,
-on the lazy-reduction field code of `csrc/fp_lazy.cuh`, and
-`csrc/rcb15_select.cu` for K3/K5); K6-K7
-replace `_g1_add_call` and `_g2_add_call` of `bazuka_tpu/ops/pallas_curve.py`
-(CUDA source `csrc/curve_add.cu`).  For K2-K5, `mask` is a (L,) bool tensor;
+`bazuka_tpu/ops/pallas_msm.py` (CUDA source `csrc/add_select.cu`, on the
+lazy-reduction field code of `csrc/fp_lazy.cuh`); K6-K7 replace
+`_g1_add_call` and `_g2_add_call` of `bazuka_tpu/ops/pallas_curve.py` (CUDA
+source `csrc/curve_add.cu`).  For K2-K5, `mask` is a (L,) bool tensor;
 lanes where Q is infinity must be masked off by the caller (affine form
 cannot encode it).  L is any length: the kernels bounds-check their lanes.
 
@@ -37,15 +36,14 @@ from ..fields.limbs import FP_LIMBS, fp_field
 from . import _cuda
 from . import weierstrass as wst
 
-_SRC = "rcb15_select.cu"
-_MADD_SRC = "madd_select.cu"
+_SRC = "add_select.cu"
 _PALLAS = "bazuka_tpu/ops/pallas_msm.py"
 K_G1_MADD = _cuda.register(_cuda.CudaKernel(
-    "g1_madd_select", _MADD_SRC, "bz_g1_madd_select", 4, f"{_PALLAS}:72"))
+    "g1_madd_select", _SRC, "bz_g1_madd_select", 4, f"{_PALLAS}:72"))
 K_G1_ADD = _cuda.register(_cuda.CudaKernel(
     "g1_add_select", _SRC, "bz_g1_add_select", 4, f"{_PALLAS}:238"))
 K_G2_MADD = _cuda.register(_cuda.CudaKernel(
-    "g2_madd_select", _MADD_SRC, "bz_g2_madd_select", 4, f"{_PALLAS}:305"))
+    "g2_madd_select", _SRC, "bz_g2_madd_select", 4, f"{_PALLAS}:305"))
 K_G2_ADD = _cuda.register(_cuda.CudaKernel(
     "g2_add_select", _SRC, "bz_g2_add_select", 4, f"{_PALLAS}:359"))
 K_G1_FULL = _cuda.register(_cuda.CudaKernel(

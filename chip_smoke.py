@@ -35,10 +35,12 @@ Phases, each printed as one JSON line:
               committed key (all ten query arrays, the head points, the VK's
               wire bytes).
   6. kernel   each kernel replayed at every size phases 4 and 5 launched it
-              with, on fresh random operands (plus the edge cases), against
-              its plain PyTorch version: bit-identical limbs, its time, the
-              plain version's time and the card's bound, per size and
-              averaged over the phases' launches
+              with, on fresh random operands (plus the edge cases; for the
+              add-select kernels K2-K5 also active lanes of p − 1 and 0 in
+              every coordinate, Z2 included), against its plain PyTorch
+              version: bit-identical limbs, its time, the plain version's
+              time and the card's bound, per size and averaged over the
+              phases' launches
 Then the `{"kernels": [...]}` line (launch counts of the phases that ran
 each kernel, times averaged over their launches) and the last line
 `{"ok": true, "device": {...}}`.  Any failed check raises, so the script
@@ -647,22 +649,23 @@ def curve_operands(kind: str, n_lanes: int, gen, device):
     return acc, q_aff, q_with_id, mask
 
 
-def stress_lanes(acc, q_aff, mask):
-    """Copies of a mixed add's operands with the top of the range: in lanes
-    5 mod 8 every coordinate is p − 1, in lanes 6 mod 8 the planes
-    alternate p − 1 and 0, and both are active.  These points are off the
-    curve, but RCB15 is one polynomial map, so the kernel must still equal
-    its plain version; they are where a lazy reduction would overflow."""
+def stress_lanes(acc, q, mask):
+    """Copies of an add-select's operands (Q affine or projective) with the
+    top of the range: in lanes 5 mod 8 every coordinate of acc and Q is
+    p − 1, in lanes 6 mod 8 the planes alternate p − 1 and 0, and both are
+    active.  These points are off the curve, but RCB15 is one polynomial
+    map, so the kernel must still equal its plain version; they are where
+    a lazy reduction would overflow."""
     F = fp_field()
     pm1 = to_torch(int_to_limbs(F.p - 1, F.n), acc.device)[:, None]
-    acc, q_aff, mask = acc.clone(), q_aff.clone(), mask.clone()
-    for x in (acc, q_aff):
+    acc, q, mask = acc.clone(), q.clone(), mask.clone()
+    for x in (acc, q):
         x[:, :, 5::8] = pm1
         for plane in range(x.shape[0]):
             x[plane, :, 6::8] = pm1 if plane % 2 == 0 else 0
     mask[5::8] = True
     mask[6::8] = True
-    return acc, q_aff, mask
+    return acc, q, mask
 
 
 def kernel_phase(sizes: dict, device):
@@ -686,9 +689,8 @@ def kernel_phase(sizes: dict, device):
         kerns = CURVE_KERNELS[kind]
         n_max = max(L for k in kerns for L, _ in sizes[k[0].name])
         acc, q_aff, q_with_id, mask = curve_operands(kind, n_max, gen, device)
-        stressed = stress_lanes(acc, q_aff, mask)
-        for (kern, api, plain, n_mul), (acc_k, q, mask_k) in zip(
-                kerns, (stressed, (acc, q_with_id, mask))):
+        for (kern, api, plain, n_mul), q_k in zip(kerns, (q_aff, q_with_id)):
+            acc_k, q, mask_k = stress_lanes(acc, q_k, mask)
             per = []
             for (L, _), count in sorted(sizes[kern.name].items()):
                 acc_l = acc_k[:, :, :L].contiguous()
@@ -836,14 +838,22 @@ def proof_phase(log_d: int, device):
     return launches, sizes
 
 
-# device kernel name -> kernel row, for the profile of the drain
+# device kernel name -> kernel row, for the profile of the drain: a key
+# matches where "::" + key is in the name, so it starts at the function's
+# own name ("add_select_kernel<..." would not match "madd_select_kernel<...")
 PROFILED_KERNELS = (
     ("madd_select_kernel<bz::lazy::G1Lazy", ck.K_G1_MADD.name),
     ("madd_select_kernel<bz::lazy::G2Lazy", ck.K_G2_MADD.name),
-    ("add_select_kernel<bz::G1F", ck.K_G1_ADD.name),
-    ("add_select_kernel<bz::G2F", ck.K_G2_ADD.name),
+    ("proj_add_select_kernel<bz::lazy::G1Lazy", ck.K_G1_ADD.name),
+    ("proj_add_select_kernel<bz::lazy::G2Lazy", ck.K_G2_ADD.name),
     ("mont_mul_kernel", "mont_mul"),
 )
+
+
+def profiled_row(device_name: str) -> str:
+    """The kernel row of a device kernel's name, or "other"."""
+    return next((row for key, row in PROFILED_KERNELS
+                 if "::" + key in device_name), "other")
 
 
 def _busy_us(intervals) -> float:
@@ -900,8 +910,7 @@ def drain_profile(params, cs, device):
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             spans.append((evt.time_range.start, evt.time_range.end))
-            row = next((name for key, name in PROFILED_KERNELS
-                        if key in evt.name), "other")
+            row = profiled_row(evt.name)
             by_kernel[row] = (by_kernel.get(row, 0.0)
                               + evt.time_range.end - evt.time_range.start)
         out = {"phase": "drain_profile", "stage": stage, "wall_s": wall_s,

@@ -10,8 +10,10 @@ own `bazuka_tpu_torch/ops/_cuda.py` (every source of its `SOURCES`, into its
 own `_build/`; all checkouts' builds run at once), and each kernel is looked
 up by the C symbol that this tree's `_cuda.REGISTRY` gives it, in whichever
 of that checkout's libraries exports it.  This tree is labelled "tree".
-The lane counts are those of the 2^22 proof's drain, 90,112, and of its
-presum, 2,056.  Steps, each printed as JSON lines:
+The lane counts are those of the 2^22 proof: 180,224 (the run-merge
+scan's R_cap, where K3/K5 run most), 90,112 (the drain's rounds, the bucket
+placement and the suffix scans) and 2,056 (the presum).  Steps, each
+printed as JSON lines:
   1. build  per checkout, the ptxas registers, spill stores and shared
             memory of every kernel function in the sources that export the
             compared symbols
@@ -24,8 +26,11 @@ presum, 2,056.  Steps, each printed as JSON lines:
   4. ab     per kernel (K2-K5), lane count and mask (replay: about 80 %
             active and scattered, as chip_smoke.py replays; drain: the
             first half of the lanes off, as the zero digits of a window sort
-            to its front; full), every checkout bit for bit against the
-            plain version,
+            to its front; merge: lanes with lane % 8192 < 2048 active, a
+            quarter of them in contiguous blocks, as the digit-0 runs at the
+            start of each window's 8,192 run lanes are the only ones the
+            run-merge scan still merges after its first step; full), every
+            checkout bit for bit against the plain version,
             then timed in two turns, the second in the reverse order; ms is
             the mean of the turns, beside chip_smoke.py's roofline bound
 Exits 1 if any checkout disagrees, 2 without a CUDA device.
@@ -52,7 +57,7 @@ from bazuka_tpu_torch.ops import _cuda
 
 P = fp_field().p
 PROBE_BUILD = _cuda.BUILD / "probe"
-LANES = (90_112, 2_056)
+LANES = (180_224, 90_112, 2_056)
 
 
 def select_kernels() -> dict:
@@ -318,6 +323,7 @@ def masks(L: int, gen, device) -> dict:
     replay[6::8] = True
     return {"replay": replay.contiguous(),
             "drain": (lane >= L // 2).contiguous(),
+            "merge": (lane % 8192 < 2048).contiguous(),
             "full": torch.ones(L, dtype=torch.bool, device=device)}
 
 

@@ -3,6 +3,8 @@ other checkouts on the card, in its parts that run without one.
 
 - Its table of kernels names K2-K5 of `_cuda.REGISTRY`, with the planes
   and multiplies that `chip_smoke.py` replays them with.
+- Its lane counts include the run-merge scan's 180,224, and its masks the
+  merge scan's, a quarter of the lanes active in contiguous blocks.
 - It loads a checkout's `_cuda.py` on its own, and that module builds from
   the checkout's own sources.
 - It reads registers, spills and stack from a `-Xptxas -v` log.
@@ -51,8 +53,25 @@ def test_loads_a_checkouts_cuda_module():
     assert mod is not _cuda
     assert mod.SOURCES == _cuda.SOURCES
     assert mod.CSRC == _cuda.CSRC
-    assert mod.lib_path("madd_select.cu") == _cuda.lib_path("madd_select.cu")
+    assert mod.lib_path("add_select.cu") == _cuda.lib_path("add_select.cu")
     assert mod.REGISTRY == {}
+
+
+def test_masks_at_the_merge_scans_lane_count():
+    L = 180_224  # R_cap of the 2^22 proof's run-merge scan: 22 windows
+    assert L in kernel_ab.LANES
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    masks = kernel_ab.masks(L, gen, "cpu")
+    assert set(masks) == {"replay", "drain", "merge", "full"}
+    for m in masks.values():
+        assert m.dtype == torch.bool and tuple(m.shape) == (L,)
+        assert m.is_contiguous()
+    merge = masks["merge"]
+    assert abs(float(merge.float().mean()) - 0.25) < 0.01
+    # contiguous blocks of 2,048 active lanes, one per 8,192
+    assert bool(merge[:2048].all()) and not bool(merge[2048:8192].any())
+    assert int(merge.view(-1, 8192).sum(1).min()) == 2048
 
 
 def test_reads_ptxas_log():

@@ -1,5 +1,5 @@
-"""The lazy-reduction schedule of kernels K2 and K4 (`csrc/fp_lazy.cuh`,
-`csrc/madd_select.cu`), modelled in Python ints on the CPU.
+"""The lazy-reduction schedule of kernels K2-K5 (`csrc/fp_lazy.cuh`,
+`csrc/add_select.cu`), modelled in Python ints on the CPU.
 
 The CUDA code cannot run here, so this file holds its arithmetic instead:
 - the constants of `fp_lazy.cuh` are p, 2p and -p^-1 mod 2^32;
@@ -9,12 +9,13 @@ The CUDA code cannot run here, so this file holds its arithmetic instead:
   states: each carry the code drops is 0, no add into the top word
   overflows, the accumulator stays below a + p, every operand and result
   lies in [0, 2p), every sum below 2^384;
-- a model of the mixed-add formula in `madd_formula`'s order (G1 over Fp,
-  G2 over Fp2 with Karatsuba) runs on lanes whose coordinates are all
-  p - 1, all 0, mixed, and seeded random, asserting each intermediate
-  below 2p, and its canonical outputs equal
-  `curve_kernels.madd_select_lm_plain` / `madd_select_g2_lm_plain` limb for
-  limb;
+- models of the two formulas, slot for slot in the kernels' order (G1
+  over Fp, G2 over Fp2 with Karatsuba): the mixed add of K2/K4
+  (`madd_formula`) and the projective add of K3/K5 (`add_formula`).  Each
+  runs on lanes whose coordinates are all p - 1, all 0, alternating, and
+  seeded random, every acc pattern against every Q pattern, asserting
+  each intermediate below 2p, and its canonical outputs equal the plain
+  versions of `curve_kernels` limb for limb, a masked-off lane copying acc;
 - every header a `csrc` file includes is in `_cuda.HEADERS` and every
   `.cu` in `_cuda.SOURCES`, so the library hash names every built file.
 
@@ -218,7 +219,7 @@ class G2:
 
 
 def madd_formula(K, acc, q):
-    """`madd_formula` of madd_select.cu, slot for slot: acc = (X1, Y1, Z1),
+    """`madd_formula` of add_select.cu, slot for slot: acc = (X1, Y1, Z1),
     q = (X2, Y2) -> canonical (X3, Y3, Z3)."""
     st = {"X1": acc[0], "Y1": acc[1], "Z1": acc[2], "X2": q[0], "Y2": q[1]}
     st["SPARE"] = K.mul(st["X1"], st["X2"])
@@ -240,6 +241,45 @@ def madd_formula(K, acc, q):
     y = K.canon(K.add(K.mul(st["X1"], st["Y2"]),
                       K.mul(st["SPARE"], st["Z1"])))
     z = K.canon(K.add(K.mul(st["Z1"], st["Y1"]), K.mul(st["Y2"], st["X2"])))
+    return x, y, z
+
+
+def add_formula(K, acc, q):
+    """`add_formula` of add_select.cu, slot for slot: acc = (X1, Y1, Z1),
+    q = (X2, Y2, Z2) -> canonical (X3, Y3, Z3).  The six products take the
+    input pairs in the order X, X + Y, X + Z, Y, Y + Z, Z."""
+    st = {"X1": acc[0], "Y1": acc[1], "Z1": acc[2],
+          "X2": q[0], "Y2": q[1], "Z2": q[2]}
+    t0 = K.mul(st["X1"], st["X2"])
+    u = K.sub(K.mul(K.add(st["X1"], st["Y1"]), K.add(st["X2"], st["Y2"])),
+              t0)
+    a = K.add(st["X1"], st["Z1"])
+    st["X1"] = u                                  # t3 + t1
+    b = K.add(st["X2"], st["Z2"])
+    st["X2"] = t0
+    v = K.sub(K.mul(a, b), st["X2"])              # Y3 + t2
+    t1 = K.mul(st["Y1"], st["Y2"])
+    st["X1"] = K.sub(st["X1"], t1)                # t3
+    a = K.add(st["Y1"], st["Z1"])
+    st["Y1"] = v
+    b = K.add(st["Y2"], st["Z2"])
+    st["Y2"] = t1
+    w = K.sub(K.mul(a, b), st["Y2"])              # t4 + t2
+    a = st["Z1"]
+    st["Z1"] = w
+    b = st["Z2"]
+    t2 = K.mul(a, b)
+    st["Y1"] = K.mul_b3(K.sub(st["Y1"], t2))      # b3 Y3
+    st["Z1"] = K.sub(st["Z1"], t2)                # t4
+    t2b = K.mul_b3(t2)
+    t1 = st["Y2"]
+    st["Y2"] = K.sub(t1, t2b)                     # t1 - b3 t2
+    st["Z2"] = K.add(t1, t2b)                     # Z3
+    t0 = st["X2"]
+    st["X2"] = K.add(K.add(t0, t0), t0)           # X3
+    x = K.canon(K.sub(K.mul(st["X1"], st["Y2"]), K.mul(st["Z1"], st["Y1"])))
+    y = K.canon(K.add(K.mul(st["Y1"], st["X2"]), K.mul(st["Y2"], st["Z2"])))
+    z = K.canon(K.add(K.mul(st["Z2"], st["Z1"]), K.mul(st["X2"], st["X1"])))
     return x, y, z
 
 
@@ -311,18 +351,15 @@ def _from_lm(t):
     return array_to_ints(arr).tolist()
 
 
-@pytest.mark.parametrize("kind", ["g1", "g2"])
-def test_madd_schedule_matches_plain(kind):
-    K, plain = ((G1, ck.madd_select_lm_plain) if kind == "g1"
-                else (G2, ck.madd_select_g2_lm_plain))
+def _check_schedule(K, formula, plain, n_q, seed):
     nfp = K.NFP
-    n_random = 6 if kind == "g1" else 3
-    lanes = _lanes(5 * nfp, n_random, 11 if kind == "g1" else 12)
+    lanes = _lanes((3 + n_q) * nfp, 6 if nfp == 1 else 3, seed)
     # the 16 edge-value lanes: every acc pattern against every Q pattern
+    # (Z2 included where Q is projective)
     edge = [a[:3 * nfp] + b[3 * nfp:] for a in lanes[:4] for b in lanes[:4]]
     lanes = edge + lanes[4:]
     acc = _to_lm([ln[:3 * nfp] for ln in lanes], 3 * nfp)
-    q = _to_lm([ln[3 * nfp:] for ln in lanes], 2 * nfp)
+    q = _to_lm([ln[3 * nfp:] for ln in lanes], n_q * nfp)
     mask = torch.ones(len(lanes), dtype=torch.bool)
     mask[1] = False  # a masked-off lane copies acc
     want = _from_lm(plain(acc, q, mask))
@@ -330,9 +367,27 @@ def test_madd_schedule_matches_plain(kind):
         if not mask[i]:
             assert want[i] == ln[:3 * nfp]
             continue
-        coords = [tuple(ln[k * nfp:(k + 1) * nfp]) for k in range(5)]
-        got = madd_formula(K, coords[:3], coords[3:])
+        coords = [tuple(ln[k * nfp:(k + 1) * nfp]) for k in range(3 + n_q)]
+        got = formula(K, coords[:3], coords[3:])
         assert [c for coord in got for c in coord] == want[i], i
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_madd_schedule_matches_plain(kind):
+    """K2 (G1) and K4 (G2): Q affine."""
+    if kind == "g1":
+        _check_schedule(G1, madd_formula, ck.madd_select_lm_plain, 2, 11)
+    else:
+        _check_schedule(G2, madd_formula, ck.madd_select_g2_lm_plain, 2, 12)
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_add_schedule_matches_plain(kind):
+    """K3 (G1) and K5 (G2): Q projective."""
+    if kind == "g1":
+        _check_schedule(G1, add_formula, ck.add_select_lm_plain, 3, 13)
+    else:
+        _check_schedule(G2, add_formula, ck.add_select_g2_lm_plain, 3, 14)
 
 
 def _includes(path):

@@ -14,6 +14,9 @@ at a tiny size on the CPU.
 - The keygen phase's spot check at d = 2^4: a key generated on the CPU
   passes it, and fails it once one sampled query point is replaced by its
   double.
+- The kernel replay's stress lanes reach every plane of a projective Q,
+  and the drain profile's kernel names map each device kernel to its own
+  row only (K3's name is not read as K2's).
 """
 
 import json
@@ -138,3 +141,39 @@ def test_keygen_spot_check_at_tiny_size():
     tampered, _ = chip_smoke.key_spot_check(comp, params, b"tiny", d)
     assert not tampered["a_query"]
     assert all(v for k, v in tampered.items() if k != "a_query")
+
+
+def test_stress_lanes_cover_projective_q():
+    F = fp_field()
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    acc = torch.randint(0, 1 << 12, (6, 24, 16), generator=gen,
+                        dtype=torch.int32)
+    q = torch.randint(0, 1 << 12, (6, 24, 16), generator=gen,
+                      dtype=torch.int32)
+    mask = torch.zeros(16, dtype=torch.bool)
+    s_acc, s_q, s_mask = chip_smoke.stress_lanes(acc, q, mask)
+    pm1 = torch.tensor([(F.p - 1 >> (16 * k)) & 0xFFFF for k in range(24)],
+                       dtype=torch.int32)
+    for x in (s_acc, s_q):
+        for lane in (5, 13):
+            assert all(torch.equal(x[pl, :, lane], pm1) for pl in range(6))
+        for lane in (6, 14):
+            for pl in range(6):  # Z2 (planes 4, 5) included
+                assert torch.equal(x[pl, :, lane],
+                                   pm1 if pl % 2 == 0 else 0 * pm1)
+    assert s_mask.nonzero().flatten().tolist() == [5, 6, 13, 14]
+    keep = [i for i in range(16) if i % 8 not in (5, 6)]
+    assert torch.equal(s_q[:, :, keep], q[:, :, keep])
+    assert not mask.any()  # the inputs are not changed
+
+
+def test_profiled_kernel_names_map_to_their_own_rows():
+    rows = {}
+    for key, row in chip_smoke.PROFILED_KERNELS:
+        name = (f"void (anonymous namespace)::{key}, (anonymous namespace)::"
+                "RegSlots<bz::lazy::G1Lazy>, 12>(int const*, long long)")
+        rows[row] = chip_smoke.profiled_row(name)
+    assert rows == {row: row for _, row in chip_smoke.PROFILED_KERNELS}
+    assert len(rows) == 5
+    assert chip_smoke.profiled_row("void at::native::sort_kernel") == "other"

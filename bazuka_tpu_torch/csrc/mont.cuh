@@ -1,6 +1,7 @@
 // Montgomery arithmetic over the two BLS12-381 fields, for one element per
-// thread.  Shared by mont_mul.cu (kernel K1) and, through rcb15.cuh, by
-// curve_add.cu (K6-K7).
+// thread, in 64-bit C: CIOS with 64-bit partial products (1,260 SASS per Fp
+// multiply, kernel_ab.py).  It now serves only K6/K7 (curve_add.cu, through
+// rcb15.cuh); K1-K5 run on mont_ptx.cuh's PTX carry chains.
 //
 // Elements are NW little-endian 32-bit words (Fr: 8, Fp: 12) in registers.
 // In device memory the port keeps 16-bit limbs in int32 lanes (the JAX

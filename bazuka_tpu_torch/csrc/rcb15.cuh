@@ -6,7 +6,7 @@
 // One template serves both groups: the coordinate field is Fp (G1F) or Fp2
 // with a Karatsuba multiply (G2F).  b3 = 3b is 12 on G1 and 12+12i on G2;
 // both products are shift-add chains, as in the TPU kernels.  The Fp
-// multiply is K1's (mont.cuh).  Every output is canonical, so the
+// multiply is mont.cuh's.  Every output is canonical, so the
 // projective coordinates equal, limb for limb, those of the same formula
 // evaluated by the plain PyTorch versions or the JAX package.
 //

@@ -11,9 +11,10 @@ Montgomery form uses R = 2^(16·n) exactly as the JAX engine does (2^256 for
 Fr, 2^384 for Fp), and every result is canonical (< p), so the port's limbs
 match the JAX package's limb for limb.
 
-`mont_mul` is the one kernel of this module: on a CUDA tensor it launches
-the hand-written Montgomery multiply (`ops.field_kernel`, kernel K1); on a
-CPU tensor it runs the plain version `redc(mul_wide(a, b))` below.
+`mont_mul` and `inv_mont` are this module's kernels: on a CUDA tensor they
+launch the hand-written Montgomery multiply and Fp inversion of
+`ops.field_kernel` (kernel K1); on a CPU tensor they run the plain versions,
+`redc(mul_wide(a, b))` below and `pow_mont` over it.
 """
 
 from __future__ import annotations
@@ -303,14 +304,16 @@ class LimbField:
 
     # ---------------- exponentiation / inversion
 
-    def pow_mont(self, a, e: int):
-        """a^e for a fixed Python-int exponent, 4-bit windows.  A zero
-        digit multiplies by nothing (x·1 is x in Montgomery form)."""
+    def pow_mont(self, a, e: int, mul=None):
+        """a^e for a fixed Python-int exponent, 4-bit windows, each product
+        `mul(x, y)` (default `mont_mul`).  A zero digit multiplies by
+        nothing (x·1 is x in Montgomery form)."""
+        mul = mul or self.mont_mul
         if e == 0:
             return self.ones_mont(a.shape[:-1], a.device)
         tbl = [None, a]
         for _ in range(14):
-            tbl.append(self.mont_mul(tbl[-1], a))
+            tbl.append(mul(tbl[-1], a))
         digits = []
         x = e
         while x > 0:
@@ -320,14 +323,21 @@ class LimbField:
         acc = tbl[digits[0]]
         for dgt in digits[1:]:
             for _ in range(4):
-                acc = self.mont_sqr(acc)
+                acc = mul(acc, acc)
             if dgt:
-                acc = self.mont_mul(acc, tbl[dgt])
+                acc = mul(acc, tbl[dgt])
         return acc
 
     def inv_mont(self, a):
-        """Batched inversion via Fermat (a^(p-2)); inverse of 0 is 0."""
-        return self.pow_mont(a, self.p - 2)
+        """Batched inversion via Fermat (a^(p-2)); inverse of 0 is 0.  On a
+        CPU tensor the plain chain `pow_mont`; on a CUDA tensor of Fp one
+        launch of the inversion kernel (`ops.field_kernel.mont_inv`), and
+        of Fr the chain over kernel K1's multiply."""
+        if self.name == "Fr" and a.device.type == "cuda":
+            return self.pow_mont(a, self.p - 2)
+        from ..ops.field_kernel import mont_inv
+
+        return mont_inv(self, a)
 
 
 # The two fields of BLS12-381.

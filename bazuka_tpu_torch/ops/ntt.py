@@ -2,11 +2,13 @@
 `bazuka_tpu/ops/ntt.py`: the radix-2 stage loop, coset transforms and the
 device-built twiddle and coset tables).
 
-Decimation-in-time radix-2: one bit-reversal gather, then log2(N) stages.
-Each stage views the (N, 16) Montgomery tensor as (groups, 2, half, 16) so
-the butterfly `(a, b) -> (a + w b, a - w b)` is one batched Montgomery
-multiply (kernel K1 on the card) plus an add and a sub.  Per-stage twiddles
-are packed in one (N-1, 16) table built on the device.
+Decimation-in-time radix-2: one bit-reversal gather, then log2(N) stages,
+each the butterfly `(a, b) -> (a + w b, a - w b)` over the (N, 16)
+Montgomery tensor viewed as (groups, 2, half, 16).  The stages are one call
+of `field_kernel.ntt_stages_`: on the card kernel K1's NTT entry (the low
+stages in shared memory, then one launch per stage), on the CPU the plain
+loop of batched multiplies, adds and subs.  Per-stage twiddles are packed
+in one (N-1, 16) table built on the device.
 
 Unlike the JAX version, nothing here consumes its input: every transform
 returns a new tensor and leaves the caller's tensor as it was.  Tables are
@@ -23,6 +25,7 @@ import torch
 
 from ..fields.host import FR_GENERATOR, FR_MODULUS, FR_TWO_ADICITY
 from ..fields.limbs import fr_field
+from .field_kernel import ntt_stages_
 
 P = FR_MODULUS
 
@@ -116,14 +119,7 @@ def ntt_mont(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     log_n = _log2(n)
     dev = str(x.device)
     tw = _stage_twiddles(log_n, inverse, dev)
-    a = x[_rev(log_n, dev)]
-    for s in range(log_n):
-        half = 1 << s
-        a = a.reshape(n // (2 * half), 2, half, F.n)
-        u = a[:, 0]
-        v = F.mont_mul(a[:, 1], tw[half - 1 : 2 * half - 1])
-        a = torch.stack([F.add(u, v), F.sub(u, v)], dim=1)
-    a = a.reshape(n, F.n)
+    a = ntt_stages_(x[_rev(log_n, dev)], tw)
     if inverse:
         a = F.mont_mul(a, F.const_mont(pow(n, -1, P), x.device))
     return a

@@ -232,8 +232,8 @@ def proj_scalar_mul(K, P, scalars, b3, nbits: int = 255):
 def g1_proj_to_am(P):
     """Projective (X, Y, Z) (N, 24) Montgomery limbs -> point-major affine
     ((N, 2, 24) limbs, (N,) bool infinity mask).  One batched Fermat
-    inversion z^(p-2) (0 -> 0), as `bazuka_tpu`'s `_fermat_inv_fn`: a chain
-    of Montgomery multiplies, kernel K1 on the card."""
+    inversion z^(p-2) (0 -> 0), as `bazuka_tpu`'s `_fermat_inv_fn`: one
+    launch of kernel K1's Fp inversion entry on the card."""
     F = fp_field()
     X, Y, Z = P
     zinv = F.inv_mont(Z)

@@ -20,13 +20,18 @@ Phases, each printed as one JSON line:
               a(ρ), b(ρ), c(ρ) summed over the circuit's own terms
               (barycentric Lagrange basis; neither the port's row plans nor
               its NTT).  The kernels' launch counts and sizes are recorded;
-              K1-K5 must each have run.  Then `msm_a` and `msm_b_g2` once
+              K1's four entries (the Fr and Fp multiplies, the NTT's
+              stages, the Fp inversion) and K2-K5 must each have run.
+              Then `msm_a` and `msm_b_g2` once
               more, timed alone and under torch.profiler (`drain_profile`
-              lines: device time by kernel, device idle share)
+              lines: device time by kernel, device idle share), and the h
+              phase the same way, without the dedup-plan thread and after
+              a run that rebuilds its NTT tables (`h_profile`)
   5. keygen   `generate_parameters` on the card: the key of the same
               synthetic MPN-b64-sized circuit at d = Np = 2^22, from a cold
-              start (its launch counts and sizes are recorded; K6, K7 and K1
-              must each have run), with 16 rows of each query (first and
+              start (its launch counts and sizes are recorded; K6, K7, K1's
+              multiplies and its Fp inversion must each have run), with 16
+              rows of each query (first and
               last valid row, a pad row) and every VK point equal to the
               generator times a scalar recomputed on the host from the
               circuit's own terms, and a proof under that key that
@@ -35,9 +40,12 @@ Phases, each printed as one JSON line:
               committed key (all ten query arrays, the head points, the VK's
               wire bytes).
   6. kernel   each kernel replayed at every size phases 4 and 5 launched it
-              with, on fresh random operands (plus the edge cases; for the
-              add-select kernels K2-K5 also active lanes of p − 1 and 0 in
-              every coordinate, Z2 included), against its plain PyTorch
+              with, on fresh random operands (plus the edge cases: 0 and
+              p − 1 among K1's operands and the NTT's inputs, R − 1 in one
+              of K1's operands against a canonical other, 0, 1 and
+              p − 1 among the inversion's; for the add-select kernels K2-K5
+              also active lanes of p − 1 and 0 in every coordinate, Z2
+              included), against its plain PyTorch
               version: bit-identical limbs, its time, the plain version's
               time and the card's bound, per size and averaged over the
               phases' launches
@@ -83,6 +91,7 @@ from bazuka_tpu_torch.ops import _cuda
 from bazuka_tpu_torch.ops import curve_kernels as ck
 from bazuka_tpu_torch.ops import field_kernel as fk
 from bazuka_tpu_torch.ops import msm_lm
+from bazuka_tpu_torch.ops import ntt as ntt_mod
 from bazuka_tpu_torch.ops import weierstrass as wst
 from bazuka_tpu_torch.utils import ser
 from bazuka_tpu_torch.zk.proof import Groth16VerifyingKey
@@ -131,6 +140,21 @@ def mont_mul_imads(n_limbs: int) -> int:
     product a low and a high IMAD, the m = t0 * p' products one IMAD."""
     s = n_limbs // 2
     return 2 * s * s + 2 * s * s + s
+
+
+def mont_sqr_imads(n_limbs: int) -> int:
+    """The same for a Montgomery squaring: s(s + 1) / 2 distinct word
+    products (the doubled cross products are shifts and adds), then the
+    reduction."""
+    s = n_limbs // 2
+    return s * (s + 1) + 2 * s * s + s
+
+
+def ntt_imads(n: int) -> int:
+    """32-bit multiply-adds of the radix-2 stages of an n-point NTT over
+    Fr: one multiply per butterfly, less those whose twiddle is 1 (the
+    first of each group, n - 1 in all)."""
+    return (n // 2 * (n.bit_length() - 1) - (n - 1)) * mont_mul_imads(16)
 
 
 def bound(nbytes: int, imads: int):
@@ -540,6 +564,14 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def peak_requested():
+    """Peak of the bytes the tensors asked for since the last reset of the
+    peak stats: `max_memory_allocated` less the caching allocator's
+    rounding and the unsplit remainders of reused blocks (up to 1 MiB
+    each), which depend on what was allocated and freed before."""
+    return torch.cuda.memory_stats().get("requested_bytes.all.peak")
+
+
 def random_field_limbs(F, n: int, gen, device):
     """(n, F.n) canonical limbs: random 16-bit limbs, top limb below p's."""
     x = torch.randint(0, 1 << 16, (n, F.n), generator=gen, device=device,
@@ -551,19 +583,22 @@ def random_field_limbs(F, n: int, gen, device):
 
 
 def check_kernel(name, size, launches, run_kernel, run_plain, nbytes, imads,
-                 reps=20):
+                 reps=20, timed=None, extra=None):
     """One kernel at one launch size: bit-exact against the plain version,
-    then timed.  `launches` is how often the proof launched this size."""
+    then timed (`timed`, where the checked call does more than the
+    kernel's launch, else `run_kernel`).  `launches` is how often the
+    proof launched this size; `extra` adds keys to the row."""
     out_k = run_kernel()
     out_p = run_plain()
     torch.cuda.synchronize()
     err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
-    ms = cuda_ms(run_kernel, reps)
+    ms = cuda_ms(timed or run_kernel, reps)
     plain_ms = cuda_ms(run_plain, 2)
     bound_ms, bound_by = bound(nbytes, imads)
     row = {"phase": "kernel", "name": name, "size": list(size),
            "launches": launches, "max_abs_err": float(err), "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           **(extra or {})}
     emit(row)
     if err != 0:
         raise SystemExit(f"{name} at {size}: kernel disagrees with its "
@@ -604,26 +639,62 @@ FULL_ADD_KERNELS = (
     (ck.K_G2_FULL, ck.g2_add_lm, ck.g2_add_lm_plain, "g2", 36),
 )
 FULL_ADD_NAMES = tuple(k[0].name for k in FULL_ADD_KERNELS)
-K1_NAMES = (fk.K_FR.name, fk.K_FP.name)
-# the kernels each driven path must have launched
+K1_NAMES = (fk.K_FR.name, fk.K_FP.name, fk.K_NTT.name, fk.K_INV.name)
+# the kernels each driven path must have launched (keygen runs no NTT)
 PROOF_KERNELS = K1_NAMES + tuple(k[0].name for group in CURVE_KERNELS.values()
                                  for k in group)
-KEYGEN_KERNELS = K1_NAMES + FULL_ADD_NAMES
+KEYGEN_KERNELS = (fk.K_FR.name, fk.K_FP.name, fk.K_INV.name) + FULL_ADD_NAMES
+# 32-bit multiply-adds that z^(p - 2) over Fp needs per element, at the
+# least: as many squarings as p - 2 has bits less one, and one multiply
+# per sliding 4-bit window (the windows' table of odd powers, part of the
+# kernel's own chain, is not counted).
+INV_FP_IMADS = ((fp_field().p - 2).bit_length() - 1) * mont_sqr_imads(
+    FP_LIMBS) + len(fk.fermat_windows(fp_field().p - 2)[1]) * mont_mul_imads(
+    FP_LIMBS)
 
 
 def k1_operands(F, n: int, b_rows: int, gen, device):
     """Random canonical operands of a K1 launch over n elements whose b has
     b_rows rows, shaped as the proof hands them to the wrapper: a viewed
     (n / b_rows, b_rows, limbs) against b (b_rows, limbs), so b repeats
-    over a's leading axis (NTT stage twiddles, constants) or not."""
+    over a's leading axis (constants, coset scales) or not.  Among them
+    0, (p − 1)², and R − 1 (every limb 0xFFFF) against a canonical row
+    in each operand: K1 takes one operand below R, as the row
+    evaluation's redundant sums are."""
     a = random_field_limbs(F, n, gen, device)
     b = random_field_limbs(F, b_rows, gen, device)
     p_minus_1 = to_torch(int_to_limbs(F.p - 1, F.n), device)
-    a[-1] = p_minus_1  # (p − 1)², the largest product
+    a[-1] = p_minus_1  # (p − 1)², the largest canonical product
     b[-1] = p_minus_1
     if n > 1:
         a[0] = 0
+    if n > 2:
+        a[1] = 0xFFFF  # against b[1 % b_rows], canonical
+    if b_rows > 3:
+        b[2] = 0xFFFF  # against a[2 + k b_rows], canonical
     return a.view(n // b_rows, b_rows, F.n), b
+
+
+def ntt_operands(n: int, gen, device):
+    """Random canonical Fr limbs for the NTT's stages at size n, with 0 and
+    p − 1 among them, and the forward transform's packed twiddles."""
+    F = fr_field()
+    x = random_field_limbs(F, n, gen, device)
+    x[0] = 0
+    x[-1] = to_torch(int_to_limbs(F.p - 1, F.n), device)
+    log_n = n.bit_length() - 1
+    return x, ntt_mod._stage_twiddles(log_n, False, str(device))
+
+
+def inv_operands(n: int, gen, device):
+    """Random canonical Fp limbs for the inversion, the first of them
+    p − 1, 1, one in Montgomery form (R mod p) and 0, as many as fit."""
+    F = fp_field()
+    x = random_field_limbs(F, n, gen, device)
+    edges = [F.p - 1, 1, F.R_mod_p, 0]
+    for i, v in enumerate(edges[:n]):
+        x[i] = to_torch(int_to_limbs(v, F.n), device)
+    return x
 
 
 def curve_operands(kind: str, n_lanes: int, gen, device):
@@ -684,6 +755,36 @@ def kernel_phase(sizes: dict, device):
                 lambda: fk.mont_mul_plain(F, a, b),
                 (2 * n + b_rows) * F.n * 4, n * mont_mul_imads(F.n)))
         rows[kern.name] = summarize(per)
+
+    F = fr_field()
+    per = []
+    for (n, _), count in sorted(sizes[fk.K_NTT.name].items()):
+        x, tw = ntt_operands(n, gen, device)
+        work = x.clone()
+        passes = 1 + max(n.bit_length() - 1 - fk.NTT_LOW_LOG, 0)
+        row_bytes = F.n * 4
+        per.append(check_kernel(
+            fk.K_NTT.name, (n,), count,
+            lambda: fk.ntt_stages_(x.clone(), tw),
+            lambda: fk.ntt_stages_plain(x, tw),
+            (3 * n - 1) * row_bytes, ntt_imads(n), reps=5,
+            timed=lambda: fk.ntt_stages_(work, tw),
+            # a diagnostic, not a bound of the function: the bytes of the
+            # kernel's own passes, each reading and writing every row
+            extra={"passes": passes, "diag_passes_bytes_ms": bound(
+                (2 * passes * n + n - 1) * row_bytes, 0)[0]}))
+    rows[fk.K_NTT.name] = summarize(per)
+
+    F = fp_field()
+    per = []
+    for (n, _), count in sorted(sizes[fk.K_INV.name].items()):
+        x = inv_operands(n, gen, device)
+        per.append(check_kernel(
+            fk.K_INV.name, (n,), count,
+            lambda: fk.mont_inv(F, x), lambda: fk.mont_inv_plain(F, x),
+            2 * n * F.n * 4, n * INV_FP_IMADS,
+            reps=5))
+    rows[fk.K_INV.name] = summarize(per)
 
     for kind in ("g1", "g2"):
         kerns = CURVE_KERNELS[kind]
@@ -822,6 +923,7 @@ def proof_phase(log_d: int, device):
     launches = _cuda.counts()
     sizes = _cuda.sizes()
     peak = torch.cuda.max_memory_allocated()
+    requested = peak_requested()
     rho = int.from_bytes(np.random.default_rng(ROOT_SEED).bytes(32),
                          "little") % P
     checks = check_real_proof(cs, params, sc, d, proof, record, r, s, rho)
@@ -830,11 +932,13 @@ def proof_phase(log_d: int, device):
           "n_terms": [int(a.shape[0]) for a in comp.rows],
           "n_heavy_vals": record["n_heavy_vals"], "setup_s": setup_s,
           "stage_s": record["seconds"], "total_s": total,
-          "max_memory_allocated": peak, "launches": launches, **checks})
+          "max_memory_allocated": peak,
+          "max_memory_requested": requested, "launches": launches, **checks})
     if not all(checks.values()):
         raise SystemExit(f"real-size proof failed its checks: {checks}")
     require_launched("proof", PROOF_KERNELS, launches)
     drain_profile(params, cs, device)
+    h_profile(params, cs, d, device)
     return launches, sizes
 
 
@@ -847,6 +951,9 @@ PROFILED_KERNELS = (
     ("proj_add_select_kernel<bz::lazy::G1Lazy", ck.K_G1_ADD.name),
     ("proj_add_select_kernel<bz::lazy::G2Lazy", ck.K_G2_ADD.name),
     ("mont_mul_kernel", "mont_mul"),
+    ("mont_inv_fp_kernel", fk.K_INV.name),
+    ("ntt_low_kernel", fk.K_NTT.name),
+    ("ntt_stage_kernel", fk.K_NTT.name),
 )
 
 
@@ -869,70 +976,113 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def drain_profile(params, cs, device):
-    """`msm_a` and `msm_b_g2` of the proof once more, each timed alone and
-    then under torch.profiler (CPU and CUDA activities): device time by
-    kernel (K2-K5, K1, the rest), launches, and the device's idle share,
-    one minus the union of device activity over the wall time of the call
-    closed by a synchronise.  The profiler slows the host's launches, so
-    `idle_share` takes the unprofiled call's wall time and
-    `idle_share_profiled` the profiled one's.  Where the profiler records
-    no device activity, CUDA events around the whole MSM call stand in,
-    and the phase says so."""
+def profiled_run(run, fresh=tuple) -> dict:
+    """`run(*fresh())` timed alone, then under torch.profiler (CPU and CUDA
+    activities): device time by kernel row, launches, and the device's idle
+    share, one minus the union of device activity over the wall time of the
+    call closed by a synchronise.  The profiler slows the host's launches,
+    so `idle_share` takes the unprofiled call's wall time and
+    `idle_share_profiled` the profiled one's.  Where the profiler records no
+    device activity, CUDA events around the whole call stand in, and the
+    row says so.  `fresh` makes the arguments outside the timed region."""
     from torch.profiler import ProfilerActivity, profile
 
-    pk = params.pk
+    args = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(*args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    args = fresh()
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    launches = {k: v for k, v in _cuda.counts().items() if v}
+    by_kernel, spans = {}, []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((evt.time_range.start, evt.time_range.end))
+        row = profiled_row(evt.name)
+        by_kernel[row] = (by_kernel.get(row, 0.0)
+                          + evt.time_range.end - evt.time_range.start)
+    out = {"wall_s": wall_s, "wall_profiled_s": wall_us / 1e6,
+           "launches": launches}
+    if spans:
+        busy = _busy_us(spans)
+        out.update(source="torch.profiler",
+                   device_s={k: v / 1e6 for k, v in by_kernel.items()},
+                   device_busy_s=busy / 1e6,
+                   idle_share=1 - busy / (wall_s * 1e6),
+                   idle_share_profiled=1 - busy / wall_us)
+    else:
+        args = fresh()
+        t_a = torch.cuda.Event(enable_timing=True)
+        t_b = torch.cuda.Event(enable_timing=True)
+        t_a.record()
+        run(*args)
+        t_b.record()
+        t_b.synchronize()
+        out.update(source="cuda_events (the profiler saw no device "
+                          "activity)",
+                   events_s=t_a.elapsed_time(t_b) / 1e3)
+    return out
+
+
+def _witness(params, cs, device):
+    """The proof's (Np, 16) standard-form witness limbs: numpy and device."""
     comp = cs.compiled()
-    Np = pk.a_query[0].shape[0]
-    z_np = np.zeros((Np, 16), np.uint32)
+    z_np = np.zeros((params.pk.a_query[0].shape[0], 16), np.uint32)
     z_np[:comp.num_vars] = ints_to_array(
         [v % P for v in cs.full_assignment()], 16)
-    z_std = to_torch(z_np, device)
+    return z_np, to_torch(z_np, device)
+
+
+def drain_profile(params, cs, device):
+    """`msm_a` and `msm_b_g2` of the proof once more, each through
+    `profiled_run`: device time by kernel (K2-K5, K1, the rest) and idle
+    share."""
+    pk = params.pk
+    z_np, z_std = _witness(params, cs, device)
     plan = msm_lm.make_dedup_plan(z_np)
-    c = prove._msm_c(Np)
+    c = prove._msm_c(pk.a_query[0].shape[0])
     for stage, query, run in (("msm_a", pk.a_query, msm_lm.msm_lm),
                               ("msm_b_g2", pk.b_g2_query, msm_lm.msm_lm_g2)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(query[0], query[1], z_std, c=c, dedup_plan=plan)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        _cuda.reset_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(query[0], query[1], z_std, c=c, dedup_plan=plan)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        launches = {k: v for k, v in _cuda.counts().items() if v}
-        by_kernel, spans = {}, []
-        for evt in prof.events():
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            spans.append((evt.time_range.start, evt.time_range.end))
-            row = profiled_row(evt.name)
-            by_kernel[row] = (by_kernel.get(row, 0.0)
-                              + evt.time_range.end - evt.time_range.start)
-        out = {"phase": "drain_profile", "stage": stage, "wall_s": wall_s,
-               "wall_profiled_s": wall_us / 1e6, "launches": launches}
-        if spans:
-            busy = _busy_us(spans)
-            out.update(source="torch.profiler",
-                       device_s={k: v / 1e6 for k, v in by_kernel.items()},
-                       device_busy_s=busy / 1e6,
-                       idle_share=1 - busy / (wall_s * 1e6),
-                       idle_share_profiled=1 - busy / wall_us)
-        else:
-            t_a = torch.cuda.Event(enable_timing=True)
-            t_b = torch.cuda.Event(enable_timing=True)
-            t_a.record()
-            run(query[0], query[1], z_std, c=c, dedup_plan=plan)
-            t_b.record()
-            t_b.synchronize()
-            out.update(source="cuda_events (the profiler saw no device "
-                              "activity)",
-                       events_s=t_a.elapsed_time(t_b) / 1e3)
-        emit(out)
+        emit({"phase": "drain_profile", "stage": stage,
+              **profiled_run(lambda: run(query[0], query[1], z_std, c=c,
+                                         dedup_plan=plan))})
+
+
+def h_profile(params, cs, d, device):
+    """The proof's h phase (`compute_h_mont`: 7 NTTs and the pointwise
+    products) once more on the proof's row evaluations, without the
+    dedup-plan thread that runs beside it in the proof: first with the NTT
+    tables dropped, so that it builds them as the proof's first h phase
+    does (`cold_tables_s`), then through `profiled_run`."""
+    z_mont = fr_field().to_mont(_witness(params, cs, device)[1])
+    dr = params.dev_r1cs
+
+    def evs():
+        return ([prove._pad_rows(p.eval(z_mont, dr.pal_mont), d)
+                 for p in dr.row_plans],)
+
+    def h(e):
+        return prove.compute_h_mont(e, d)
+
+    ntt_mod._stage_twiddles.cache_clear()
+    ntt_mod._coset_scale.cache_clear()
+    args = evs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h(*args)
+    torch.cuda.synchronize()
+    emit({"phase": "h_profile", "cold_tables_s": time.perf_counter() - t0,
+          **profiled_run(h, evs)})
 
 
 def require_launched(phase: str, names, launches: dict):
@@ -961,6 +1111,7 @@ def keygen_phase(log_d: int, device):
     launches = _cuda.counts()
     sizes = _cuda.sizes()
     peak = torch.cuda.max_memory_allocated()
+    requested = peak_requested()
     Np = params.pk.a_query[0].shape[0]
 
     t2 = time.perf_counter()
@@ -993,7 +1144,8 @@ def keygen_phase(log_d: int, device):
           "Np": Np,
           "n_constraints": comp.n_constraints, "num_vars": comp.num_vars,
           "toy_s": toy_s, "stage_s": record["seconds"], "total_s": total,
-          "max_memory_allocated": peak, "launches": launches,
+          "max_memory_allocated": peak,
+          "max_memory_requested": requested, "launches": launches,
           "add_sizes": {k: {str(n): c for (n, _), c in sorted(sizes[k].items())}
                         for k in FULL_ADD_NAMES},
           "rows_sampled": n_sampled, "spot_check_s": check_s,

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The add-select kernels (K2-K5) of this tree against the same kernels of
-other checkouts of the repository, on one NVIDIA GPU, in one process.
+"""The add-select kernels (K2-K5) and K1's entries of this tree against the
+same kernels of other checkouts of the repository, on one NVIDIA GPU, in
+one process.
 
     python3 kernel_ab.py [LABEL=DIR ...]
 
@@ -17,10 +18,14 @@ printed as JSON lines:
   1. build  per checkout, the ptxas registers, spill stores and shared
             memory of every kernel function in the sources that export the
             compared symbols
-  2. sass   SASS instructions of one Fp Montgomery multiply of this tree's
-            field code, lazy (csrc/fp_lazy.cuh) and fully reduced
-            (csrc/mont.cuh): cuobjdump of a kernel with two chained
-            multiplies less one with one
+  2. sass   SASS instructions of one Montgomery multiply of this tree's
+            field code: Fp lazy (csrc/fp_lazy.cuh on csrc/mont_ptx.cuh) and
+            fully reduced (csrc/mont.cuh), Fr as K1 computes it (mont_ptx.cuh,
+            one final subtract) and fully reduced: cuobjdump of a kernel
+            with two chained multiplies less one with one; then per
+            checkout the SASS count of every kernel function of the
+            libraries that export the compared symbols, and whether each
+            add-select function's opcodes equal this tree's
   3. ops    fp_lazy.cuh's mul/add/sub/canon on the card against Python ints,
             on edge and random operands in [0, 2p)
   4. ab     per kernel (K2-K5), lane count and mask (replay: about 80 %
@@ -33,6 +38,15 @@ printed as JSON lines:
             checkout bit for bit against the plain version,
             then timed in two turns, the second in the reverse order; ms is
             the mean of the turns, beside chip_smoke.py's roofline bound
+  5. k1     K1's entries at the 2^22 proof's sizes, bit for bit against
+            their plain versions and timed the same way: the Fr multiply at
+            2^22 elements (b per element, and one constant row) and 2^21,
+            the Fp multiply at keygen's 2^16-element chunks, the NTT's
+            stages at 2^22 and 2^21, the Fp inversion at the presum's one
+            element and keygen's 2^16.  A checkout without the stage or the
+            inversion entry runs what its prover ran instead, on its own
+            multiply: the radix-2 loop (K1 per stage, PyTorch's add, sub
+            and stack) and `pow_mont`'s 4-bit chain, one launch a product
 Exits 1 if any checkout disagrees, 2 without a CUDA device.
 """
 
@@ -52,12 +66,22 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from bazuka_tpu_torch.fields.limbs import FP_LIMBS, fp_field
+from bazuka_tpu_torch.fields.limbs import FP_LIMBS, fp_field, fr_field
 from bazuka_tpu_torch.ops import _cuda
+from bazuka_tpu_torch.ops import field_kernel as fk
+from bazuka_tpu_torch.ops import ntt as ntt_mod
 
 P = fp_field().p
 PROBE_BUILD = _cuda.BUILD / "probe"
 LANES = (180_224, 90_112, 2_056)
+# K1's sizes: (field, elements, rows of b) for the multiply, elements for
+# the NTT's stages and for the inversion
+K1_MUL = (("Fr", 1 << 22, 1 << 22), ("Fr", 1 << 22, 1),
+          ("Fr", 1 << 21, 1 << 21), ("Fp", 1 << 16, 1 << 16))
+K1_NTT = (1 << 22, 1 << 21)
+K1_INV = (1, 1 << 16)
+# entries a checkout may lack: each has a stand-in on its multiply
+K1_NEW = (fk.K_NTT.symbol, fk.K_INV.symbol)
 
 
 def select_kernels() -> dict:
@@ -74,6 +98,7 @@ def select_kernels() -> dict:
 PROBE = r"""
 #include "fp_lazy.cuh"
 #include "mont.cuh"
+#include "mont_ptx.cuh"
 
 namespace {
 __device__ bz::lazy::Fp ld(const uint32_t* p, long long n, long long i) {
@@ -107,6 +132,38 @@ PROBE_KERNEL(probe_lazy_mul1, bz::lazy::mul(x, y))
 PROBE_KERNEL(probe_lazy_mul2, bz::lazy::mul(bz::lazy::mul(x, y), y))
 PROBE_KERNEL(probe_full_mul1, mont_full(x, y))
 PROBE_KERNEL(probe_full_mul2, mont_full(mont_full(x, y), y))
+
+// Fr: K1's product (mont_ptx.cuh, one final subtract) and mont.cuh's
+namespace {
+using FrE = bz::ptx::Elem<bz::ptx::FrMod>;
+__device__ FrE k1_fr(const FrE& a, const FrE& b) {
+  return bz::ptx::reduce_once<bz::ptx::FrMod, false>(
+      bz::ptx::mul<bz::ptx::FrMod>(a, b));
+}
+__device__ FrE full_fr(const FrE& a, const FrE& b) {
+  FrE r;
+  bz::mont_mul<bz::Fr>(r.w, a.w, b.w);
+  return r;
+}
+}  // namespace
+
+#define PROBE_FR(name, expr)                                              \
+  extern "C" __global__ void name(const uint32_t* a, const uint32_t* b,   \
+                                  uint32_t* r, long long n) {             \
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; \
+    if (i >= n) return;                                                   \
+    FrE x, y;                                                             \
+    for (int j = 0; j < 8; ++j) {                                         \
+      x.w[j] = a[j * n + i];                                              \
+      y.w[j] = b[j * n + i];                                              \
+    }                                                                     \
+    const FrE z = expr;                                                   \
+    for (int j = 0; j < 8; ++j) r[j * n + i] = z.w[j];                    \
+  }
+PROBE_FR(probe_k1fr_mul1, k1_fr(x, y))
+PROBE_FR(probe_k1fr_mul2, k1_fr(k1_fr(x, y), y))
+PROBE_FR(probe_fullfr_mul1, full_fr(x, y))
+PROBE_FR(probe_fullfr_mul2, full_fr(full_fr(x, y), y))
 
 // out planes: mul, add, sub, canon(a); a, b word-major (12, n)
 extern "C" __global__ void probe_ops(const uint32_t* a, const uint32_t* b,
@@ -189,9 +246,10 @@ def demangle(names):
     return got if len(got) == len(names) else list(names)
 
 
-def find_symbols(label: str, mod, symbols) -> dict:
+def find_symbols(label: str, mod, symbols, optional=()) -> dict:
     """{symbol: ctypes function} from a checkout's libraries; emits the
-    ptxas rows of each source that exports one of them."""
+    ptxas rows of each source that exports one of them.  Symbols in
+    `optional` may be missing."""
     found = {}
     for source in mod.SOURCES:
         lib = mod.load(source)
@@ -206,7 +264,7 @@ def find_symbols(label: str, mod, symbols) -> dict:
                   "kernel": name, **{k: r.get(k) for k in
                                      ("registers", "spill_stores",
                                       "stack_frame", "smem")}})
-    missing = [s for s in symbols if s not in found]
+    missing = [s for s in symbols if s not in found and s not in optional]
     if missing:
         raise SystemExit(f"{label}: no library exports {missing}")
     return found
@@ -239,7 +297,7 @@ def sass_counts(so: Path) -> dict:
 def sass_phase(probe_so: Path):
     counts = sass_counts(probe_so)
     res = {}
-    for kind in ("lazy", "full"):
+    for kind in ("lazy", "full", "k1fr", "fullfr"):
         one, two = counts[f"probe_{kind}_mul1"], counts[f"probe_{kind}_mul2"]
         diff = {op: two.get(op, 0) - one.get(op, 0)
                 for op in set(one) | set(two)}
@@ -248,8 +306,34 @@ def sass_phase(probe_so: Path):
                                  if op.startswith("IMAD")),
                      "by_opcode": {k: v for k, v in sorted(diff.items())
                                    if v}}
-    emit({"phase": "sass", "per_fp_mul": res,
-          "bound_imad": cs.mont_mul_imads(FP_LIMBS)})
+    emit({"phase": "sass",
+          "per_fp_mul": {"lazy": res["lazy"], "full": res["full"]},
+          "bound_imad": cs.mont_mul_imads(FP_LIMBS),
+          "per_fr_mul": {"k1": res["k1fr"], "full": res["fullfr"]},
+          "bound_imad_fr": cs.mont_mul_imads(16)})
+
+
+def kernel_sass(mods: dict, sources=("add_select.cu", "mont_mul.cu")):
+    """Per checkout, the SASS count of every kernel function in its
+    libraries of `sources`, and for each add-select function whether its
+    opcodes equal this tree's."""
+    by = {}
+    for label, mod in mods.items():
+        for source in sources:
+            if source not in mod.SOURCES:
+                continue
+            raw = sass_counts(mod.lib_path(source))
+            # by demangled name: the mangled one hashes the file's path
+            counts = dict(zip(demangle(list(raw)), raw.values()))
+            by[(label, source)] = counts
+            for name, ops in counts.items():
+                row = {"phase": "sass_kernel", "checkout": label,
+                       "source": source, "kernel": name,
+                       "instructions": sum(ops.values())}
+                if label != "tree" and source == "add_select.cu":
+                    ref = by.get(("tree", source), {}).get(name)
+                    row["same_as_tree"] = ref == ops
+                emit(row)
 
 
 # ------------------------------------------------------------ ops probe
@@ -387,6 +471,139 @@ def ab_phase(fns: dict, device) -> bool:
     return ok
 
 
+# ------------------------------------------------------------ K1
+
+
+def c_fn(fn, n_ptrs: int):
+    """A ctypes entry point of K1's C interface: pointers, two int64s and
+    the stream."""
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                   + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        ptrs, n, extra = args[:n_ptrs], args[n_ptrs], args[n_ptrs + 1]
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*[_cuda.ptr(t) for t in ptrs], n, extra,
+                ctypes.c_void_p(stream))
+        if rc != 0:
+            raise SystemExit(f"CUDA error {rc} at launch")
+    return call
+
+
+def mul_with(F, call):
+    """a·b on (..., n) limbs through a checkout's multiply entry, as its
+    wrapper hands it rows (b repeating over a's leading axes)."""
+    def mul(a, b):
+        a = a.contiguous()
+        b = b.contiguous()
+        out = torch.empty(torch.broadcast_shapes(a.shape, b.shape),
+                          dtype=torch.int32, device=a.device)
+        n = out.numel() // F.n
+        if tuple(a.shape) != tuple(out.shape):
+            a, b = b, a
+        call(a, b, out, n, b.numel() // F.n)
+        return out
+    return mul
+
+
+def stage_loop(mul, a, tw):
+    """The radix-2 stage loop that ntt_mont ran before the stage entry: the
+    plain version's stages over the whole array, K1 per stage through
+    `mul`, PyTorch's add, sub and stack around it."""
+    F = fr_field()
+    n = a.shape[0]
+    return fk._stages(F, a.reshape(1, n, F.n), tw, 0, n.bit_length() - 1,
+                      mul).reshape(n, F.n)
+
+
+def _mul_runs(F, call, a, b):
+    mul = mul_with(F, call)
+    return (lambda: mul(a, b),) * 2
+
+
+def _ntt_runs(f: dict, x, tw):
+    """(checked, timed) calls of a checkout's NTT stages at x's size: its
+    stage entry (in place: on a copy, then on a work buffer), else the
+    stage loop on its multiply."""
+    if fk.K_NTT.symbol not in f:
+        mul = mul_with(fr_field(), c_fn(f[fk.K_FR.symbol], 3))
+        return (lambda: stage_loop(mul, x, tw),) * 2
+    call, work, n = c_fn(f[fk.K_NTT.symbol], 3), x.clone(), x.shape[0]
+
+    def stages(buf):
+        call(buf, torch.empty_like(buf), tw, n, 0)
+        return buf
+    return (lambda: stages(x.clone()), lambda: stages(work))
+
+
+def _inv_runs(f: dict, x):
+    """(checked, timed) calls of a checkout's Fp inversion: its entry, else
+    pow_mont's chain on its multiply."""
+    F = fp_field()
+    if fk.K_INV.symbol not in f:
+        mul = mul_with(F, c_fn(f[fk.K_FP.symbol], 3))
+        return (lambda: F.pow_mont(x, F.p - 2, mul=mul),) * 2
+    call = c_fn(f[fk.K_INV.symbol], 2)
+
+    def inv():
+        out = torch.empty_like(x)
+        call(x, out, x.shape[0], 0)
+        return out
+    return (inv, inv)
+
+
+def k1_cases(fns: dict, device) -> list:
+    """(entry, size, {checkout: (checked call, timed call)}, plain call,
+    bytes, IMADs) for K1's entries at the proof's sizes."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    cases = []
+    for fname, n, rows in K1_MUL:
+        F, kern = ((fr_field(), fk.K_FR) if fname == "Fr"
+                   else (fp_field(), fk.K_FP))
+        a, b = cs.k1_operands(F, n, rows, gen, device)
+        runs = {label: _mul_runs(F, c_fn(f[kern.symbol], 3), a, b)
+                for label, f in fns.items()}
+        cases.append((kern.name, [n, rows], runs,
+                      lambda F=F, a=a, b=b: fk.mont_mul_plain(F, a, b),
+                      (2 * n + rows) * F.n * 4, n * cs.mont_mul_imads(F.n)))
+    for n in K1_NTT:
+        x, tw = cs.ntt_operands(n, gen, device)
+        runs = {label: _ntt_runs(f, x, tw) for label, f in fns.items()}
+        cases.append((fk.K_NTT.name, [n], runs,
+                      lambda x=x, tw=tw: fk.ntt_stages_plain(x, tw),
+                      (3 * n - 1) * 16 * 4, cs.ntt_imads(n)))
+    F = fp_field()
+    for n in K1_INV:
+        x = cs.inv_operands(n, gen, device)
+        runs = {label: _inv_runs(f, x) for label, f in fns.items()}
+        cases.append((fk.K_INV.name, [n], runs,
+                      lambda x=x: fk.mont_inv_plain(F, x), 2 * n * F.n * 4,
+                      n * cs.INV_FP_IMADS))
+    return cases
+
+
+def k1_phase(fns: dict, device) -> bool:
+    ok = True
+    for name, size, runs, plain, nbytes, imads in k1_cases(fns, device):
+        labels = tuple(runs)
+        want = plain()
+        equal = {b: bool(torch.equal(runs[b][0](), want)) for b in labels}
+        ok &= all(equal.values())
+        times = {b: [] for b in labels}
+        for turn in (labels, labels[::-1]):
+            for b in turn:
+                times[b].append(cs.cuda_ms(runs[b][1], 3))
+        bound_ms, bound_by = cs.bound(nbytes, imads)
+        ms = {b: sum(t) / 2 for b, t in times.items()}
+        emit({"phase": "k1", "kernel": name, "size": size,
+              "bound_ms": bound_ms, "bound_by": bound_by, "equal": equal,
+              "ms": ms, "roofline": {b: bound_ms / t for b, t in ms.items()},
+              "turns": times})
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkouts", nargs="*", metavar="LABEL=DIR",
@@ -412,12 +629,15 @@ def main(argv=None) -> int:
         for b in builds:
             b.result()
         probe_so = probe.result()
-    symbols = [_cuda.REGISTRY[k].symbol for k in select_kernels()]
-    fns = {label: find_symbols(label, m, symbols)
+    symbols = [_cuda.REGISTRY[k].symbol for k in select_kernels()] + [
+        k.symbol for k in (fk.K_FR, fk.K_FP, fk.K_NTT, fk.K_INV)]
+    fns = {label: find_symbols(label, m, symbols, optional=K1_NEW)
            for label, m in mods.items()}
     sass_phase(probe_so)
+    kernel_sass(mods)
     ok = ops_phase(probe_so, device)
     ok &= ab_phase(fns, device)
+    ok &= k1_phase(fns, device)
     print(smi, flush=True)
     emit({"ok": ok})
     return 0 if ok else 1

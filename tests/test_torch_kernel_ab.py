@@ -8,6 +8,11 @@ other checkouts on the card, in its parts that run without one.
 - It loads a checkout's `_cuda.py` on its own, and that module builds from
   the checkout's own sources.
 - It reads registers, spills and stack from a `-Xptxas -v` log.
+- K1's entries run at the 2^22 proof's sizes, and a checkout without the
+  NTT's stage entry or the inversion runs what its prover ran instead:
+  the stand-in stage loop and `pow_mont`'s chain on a multiply equal the
+  plain versions, with b's rows handed to the multiply as the wrapper
+  hands them.
 - Without a CUDA device it exits 2 and prints no result.
 """
 
@@ -19,8 +24,11 @@ from pathlib import Path
 import torch
 
 import kernel_ab
+from bazuka_tpu_torch.fields.limbs import fp_field, fr_field
 from bazuka_tpu_torch.ops import _cuda
 from bazuka_tpu_torch.ops import curve_kernels as ck
+from bazuka_tpu_torch.ops import field_kernel as fk
+from bazuka_tpu_torch.ops import ntt as tn
 
 torch.set_num_threads(1)
 
@@ -82,6 +90,44 @@ def test_reads_ptxas_log():
         {"function": "_Z5otherPi", "stack_frame": 0, "spill_stores": 0,
          "registers": 40, "smem": 1024},
     ]
+
+
+def test_k1_sizes_are_the_proofs():
+    assert ("Fr", 1 << 22, 1 << 22) in kernel_ab.K1_MUL
+    assert ("Fr", 1 << 21, 1 << 21) in kernel_ab.K1_MUL
+    assert ("Fp", 1 << 16, 1 << 16) in kernel_ab.K1_MUL
+    assert kernel_ab.K1_NTT == (1 << 22, 1 << 21)
+    assert kernel_ab.K1_INV == (1, 1 << 16)
+    assert set(kernel_ab.K1_NEW) == {fk.K_NTT.symbol, fk.K_INV.symbol}
+
+
+def _plain_call(F, seen):
+    """A stand-in for a multiply entry's ctypes call: the plain product of
+    a's rows against b's rows repeated, as the kernel reads them."""
+    def call(a, b, out, n, rows):
+        seen.append((n, rows))
+        prod = fk.mont_mul_plain(F, a.reshape(n // rows, rows, F.n),
+                                 b.reshape(rows, F.n))
+        out.copy_(prod.reshape(out.shape))
+    return call
+
+
+def test_stand_ins_equal_the_plain_versions():
+    F = fr_field()
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    x, tw = kernel_ab.cs.ntt_operands(32, gen, "cpu")
+    seen = []
+    mul = kernel_ab.mul_with(F, _plain_call(F, seen))
+    got = kernel_ab.stage_loop(mul, x, tw)
+    assert torch.equal(got, fk.ntt_stages_plain(x, tw))
+    # stage s multiplies n/2 elements against its 2^s twiddle rows
+    assert seen == [(16, 1 << s) for s in range(5)]
+    Fp = fp_field()
+    z = kernel_ab.cs.inv_operands(3, gen, "cpu")
+    inv = Fp.pow_mont(z, Fp.p - 2,
+                      mul=kernel_ab.mul_with(Fp, _plain_call(Fp, [])))
+    assert torch.equal(inv, fk.mont_inv_plain(Fp, z))
 
 
 def test_exits_2_without_cuda():

@@ -1,8 +1,10 @@
-"""The lazy-reduction schedule of kernels K2-K5 (`csrc/fp_lazy.cuh`,
-`csrc/add_select.cu`), modelled in Python ints on the CPU.
+"""The lazy-reduction schedule of kernels K2-K5 (`csrc/fp_lazy.cuh` on
+`csrc/mont_ptx.cuh`, `csrc/add_select.cu`), modelled in Python ints on the
+CPU.
 
 The CUDA code cannot run here, so this file holds its arithmetic instead:
-- the constants of `fp_lazy.cuh` are p, 2p and -p^-1 mod 2^32;
+- the Fp constants of `mont_ptx.cuh` (`FpMod`) are p, 2p and -p^-1 mod
+  2^32;
 - a word-by-word model of its Montgomery multiply (CIOS over an even and
   a one-word-up accumulator, carry chains of 64-bit products, no final
   subtract), add, sub and canon asserts every bound the header's note
@@ -42,7 +44,9 @@ P = int("1a0111ea397fe69a4b1ba7b6434bacd764774b84f38512bf6730d2a0f6b0f6241e"
 R = 1 << 384
 R_INV = pow(R, -1, P)
 MASK = (1 << 32) - 1
-HEADER = (_cuda.CSRC / "fp_lazy.cuh").read_text()
+# the body of mont_ptx.cuh's Fp modulus
+HEADER = re.search(r"struct FpMod \{(.*?)\n\};",
+                   (_cuda.CSRC / "mont_ptx.cuh").read_text(), re.S).group(1)
 
 
 def _words(x):
@@ -58,8 +62,8 @@ def _header_words(fn):
     return [int(v, 16) for v in re.findall(r"0x([0-9a-f]+)u", body)]
 
 
-P_WORDS = _header_words("p_word")
-P2_WORDS = _header_words("p2_word")
+P_WORDS = _header_words("p")
+P2_WORDS = _header_words("p2")
 PINV = int(re.search(r"PINV = 0x([0-9a-f]+)u", HEADER).group(1), 16)
 
 
@@ -72,7 +76,7 @@ def check(cond, what):
         raise Bound(what)
 
 
-# ------------------------------------------------- Fp, as fp_lazy.cuh
+# ------------------------------- Fp, as fp_lazy.cuh on mont_ptx.cuh
 
 def _pairs(acc, c, terms, last_cc=True):
     """A carry chain of 64-bit products: for each (k, u, v, (lo, hi)),

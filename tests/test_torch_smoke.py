@@ -175,5 +175,5 @@ def test_profiled_kernel_names_map_to_their_own_rows():
                 "RegSlots<bz::lazy::G1Lazy>, 12>(int const*, long long)")
         rows[row] = chip_smoke.profiled_row(name)
     assert rows == {row: row for _, row in chip_smoke.PROFILED_KERNELS}
-    assert len(rows) == 5
+    assert len(rows) == 7
     assert chip_smoke.profiled_row("void at::native::sort_kernel") == "other"

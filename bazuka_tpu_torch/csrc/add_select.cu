@@ -1,30 +1,37 @@
-// Kernels K2-K5: the MSM's curve additions with a per-lane select,
-//   out = mask ? acc + Q : acc,  acc projective,
-// over G1 (coordinates in Fp, K2/K3) and G2 (Fp2, K4/K5).  RCB15
+// Kernels K2-K7: complete curve additions of projective points over G1
+// (coordinates in Fp: K2, K3, K6) and G2 (Fp2: K4, K5, K7).  RCB15
 // algorithm 7 (a = 0): one branch-free formula, right for doubling,
-// identity and inverses.
+// identity and inverses.  K2-K5 add with a per-lane select,
+//   out = mask ? acc + Q : acc,
+// K6/K7 with none, out = P + Q.
 //   K2/K4 mixed add, Q affine (Z2 = 1): 11 coordinate multiplies per lane,
 //         the drain's rounds;
 //   K3/K5 Q projective: 12, the run-merge scan, the bucket placement, the
-//         suffix scans and the presum.
+//         suffix scans and the presum;
+//   K6/K7 the same projective add on every lane: keygen's fixed-base
+//         multiply (the window table and the 32 window adds per scalar).
 //
 // Replaces the Pallas kernels of bazuka_tpu/ops/pallas_msm.py:
 //   K2 _g1_madd_select_call (API madd_select_lm)
 //   K3 _g1_add_select_call  (API add_select_lm)
 //   K4 _g2_madd_select_call (API madd_select_g2_lm)
 //   K5 _g2_add_select_call  (API add_select_g2_lm)
+// and of bazuka_tpu/ops/pallas_curve.py:
+//   K6 _g1_add_call (API pallas_g1_add)
+//   K7 _g2_add_call (API pallas_g2_add)
 //
-// Layout: limb-major (planes, 24, L) int32 with 16-bit payloads, acc/out
-// planes x y z (G1) or x0 x1 y0 y1 z0 z1 (G2), Q planes x y [z] (G1) or
-// x0 x1 y0 y1 [z0 z1] (G2); mask one byte per lane; any L.  One thread
-// per lane: a warp reads or writes one limb row as 128 contiguous bytes,
-// so the loads and stores are coalesced as they stand.
+// Layout: limb-major (planes, 24, L) int32 with 16-bit payloads, acc (P)
+// and out planes x y z (G1) or x0 x1 y0 y1 z0 z1 (G2), Q planes x y [z]
+// (G1) or x0 x1 y0 y1 [z0 z1] (G2); mask one byte per lane; any L.  One
+// thread per lane: a warp reads or writes one limb row as 128 contiguous
+// bytes, so the loads and stores are coalesced as they stand.  Inputs may
+// lie anywhere in [0, 2p); outputs are canonical.
 //
 // What bounds it on an H100: the integer multiply-adds.  Per active lane
 // K2 does 11 Fp multiplies (6,468 IMAD at 588 each) against 769 bytes, K3
 // 12 (7,056) against 865, K4 33 (19,404) against 1,537, K5 36 (21,168)
-// against 1,729; at 16.7e12 IMAD/s and 3.35 TB/s the bytes take 35-60 %
-// of the multiply time.
+// against 1,729, K6 12 against 864 and K7 36 against 1,728; at 16.7e12
+// IMAD/s and 3.35 TB/s the bytes take 35-60 % of the multiply time.
 //
 // The design (the field arithmetic is fp_lazy.cuh's: PTX carry chains,
 // values kept in [0, 2p), one canonical subtract per output coordinate):
@@ -33,8 +40,8 @@
 //   projective add's six), as inputs die their slots take the
 //   temporaries, at most one coordinate is held in registers across a
 //   multiply, and each output coordinate is stored as soon as it is done.
-// - K4/K5 (Fp2) keep their slots in shared memory.  Each thread packs its
-//   lane's acc and Q limbs into 32-bit words in its own column of the
+// - K4/K5/K7 (Fp2) keep their slots in shared memory.  Each thread packs
+//   its lane's acc and Q limbs into 32-bit words in its own column of the
 //   block's tile (word w of the lane at tile[w * LANES + thread], so a
 //   warp's access is one conflict-free row) and reads a coordinate back
 //   where the formula uses it; the reads are volatile, so the compiler
@@ -45,16 +52,16 @@
 //   holds.  6 Fp2 slots are 576 B per lane, 72 KiB per block of 128
 //   lanes; built for 12 warps (3 blocks) per SM, K4 and K5 each take 168
 //   registers and spill nothing, where the one-thread-per-lane kernels on
-//   mont.cuh held 8 warps and spilled 1,316 B (K4) and 1,104 B (K5).  On
-//   an H100, K4 built for 8 warps (252 registers) ran 1.35-1.7x slower at
-//   90,112 lanes, and with blocks of 64 lanes within 1 % (kernel_ab.py
-//   against checkouts so changed; PERF.md).  K5 at the run-merge scan's
-//   180,224 lanes: 0.716 ms with the replay's scattered ~81 % of the lanes
-//   active, 0.206 ms with the merge scan's quarter in blocks, 0.603 ms
-//   with all (26-38 % of the bound; NVIDIA H100 80GB HBM3, 700 W,
-//   kernel_ab.py).
-// - K2/K3 (Fp) keep their six slots, 72 words, in registers.  Built for
-//   12 warps per SM K2 takes 168 registers and spills 16 B.  At 90,112
+//   the fully reduced 64-bit field code they replaced held 8 warps and
+//   spilled 1,316 B (K4) and 1,104 B (K5).  On an H100, K4 built for 8
+//   warps (252 registers) ran 1.35-1.7x slower at 90,112 lanes, and with
+//   blocks of 64 lanes within 1 % (kernel_ab.py against checkouts so
+//   changed; PERF.md).  K5 at the run-merge scan's 180,224 lanes: 0.716
+//   ms with the replay's scattered ~81 % of the lanes active, 0.206 ms
+//   with the merge scan's quarter in blocks, 0.603 ms with all (26-38 % of
+//   the bound; NVIDIA H100 80GB HBM3, 700 W, kernel_ab.py).
+// - K2/K3/K6 (Fp) keep their six slots, 72 words, in registers.  Built
+//   for 12 warps per SM K2 takes 168 registers and spills 16 B.  At 90,112
 //   lanes it ran 9-16 % faster than the same formula on staged slots (128
 //   registers, no spill, 16 warps) with half the lanes or all of them
 //   active, and within 1.5 % with the replay's scattered mask; at 2,056
@@ -67,6 +74,26 @@
 // - Lanes whose mask is 0 copy acc and do no arithmetic; a warp with no
 //   active lane does only that copy, as most warps of the run-merge scan,
 //   K3/K5's most launched site, do after its first step.
+// - K6/K7 are K3/K5's kernels with the select compiled out: the same
+//   slots and formula.  Keygen launches them at 65,536 lanes (GEN_CHUNK):
+//   1.29 waves of 128-lane blocks at 12 warps per SM on 132 SMs.  Times
+//   per launch (kernel_ab.py against checkouts with the one line changed;
+//   NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+//   - K6 built for 12 warps (168 registers, 60 B spill): 0.0405 ms for
+//     one full wave (50,688 lanes), 0.0507 at 65,536, so the tail costs
+//     nothing past its lanes; 64-lane blocks 0.0506.  Built for 16 warps
+//     (128 registers, 16 B spill; 65,536 lanes fit one wave) 0.0465-0.0470
+//     at 65,536 and 6-12 % faster at the last chunks' 64,292 and 65,535,
+//     equal within 2 % at the window table's 32-4,096; for 20 warps (96
+//     registers, 572 B spill) 0.0587.  K6 ships built for 16 warps.
+//   - K7 (168 registers, no spill): one wave 0.144 ms, 65,536 lanes
+//     0.279-0.296: the tail wave (116 blocks, one per SM) takes nearly a
+//     full wave's time, as each lane's chain of dependent multiplies, not
+//     the SM's issue rate, sets it.  64-lane blocks 0.283; the slots in
+//     registers (spilled) 0.379 built for 12 warps (3,164 B spill) and
+//     0.296 for 16 (4,452 B; one wave, but 0.236 ms at 50,688 lanes).
+//     Six Fp2 slots in shared memory hold at most 403 lanes per SM, a
+//     chunk of 65,536 needs 497 for one wave; K7 ships as K5 is built.
 
 #include <cuda_runtime.h>
 
@@ -283,21 +310,24 @@ __device__ __forceinline__ void add_formula(S& st, int32_t* __restrict__ out,
                  out, 2, L, lane);
 }
 
-// One lane of a select kernel whose Q has NQ coordinates: 2 (affine, the
-// mixed add) or 3 (projective).
-template <class K, class S, int NQ>
-__device__ __forceinline__ void select_lane(const int32_t* __restrict__ acc,
-                                            const int32_t* __restrict__ q,
-                                            const uint8_t* __restrict__ mask,
-                                            int32_t* __restrict__ out,
-                                            long long L) {
+// One lane of a kernel whose Q has NQ coordinates: 2 (affine, the mixed
+// add) or 3 (projective).  With SELECT a lane whose mask is 0 copies acc;
+// without it (K6/K7) every lane adds and `mask` is not read.
+template <class K, class S, int NQ, bool SELECT>
+__device__ __forceinline__ void add_lane(const int32_t* __restrict__ acc,
+                                         const int32_t* __restrict__ q,
+                                         const uint8_t* __restrict__ mask,
+                                         int32_t* __restrict__ out,
+                                         long long L) {
   const long long lane = (long long)blockIdx.x * LANES + threadIdx.x;
   if (lane >= L) return;
-  if (!mask[lane]) {
-    constexpr int ROWS = 3 * K::NFP * NLIMB;
+  if constexpr (SELECT) {
+    if (!mask[lane]) {
+      constexpr int ROWS = 3 * K::NFP * NLIMB;
 #pragma unroll 8
-    for (int r = 0; r < ROWS; ++r) out[r * L + lane] = acc[r * L + lane];
-    return;
+      for (int r = 0; r < ROWS; ++r) out[r * L + lane] = acc[r * L + lane];
+      return;
+    }
   }
   extern __shared__ uint32_t tile[];
   S st(tile);
@@ -320,7 +350,7 @@ __global__ void __launch_bounds__(LANES, WARPS * 32 / LANES)
                        const int32_t* __restrict__ q,
                        const uint8_t* __restrict__ mask,
                        int32_t* __restrict__ out, long long L) {
-  select_lane<K, S, 2>(acc, q, mask, out, L);
+  add_lane<K, S, 2, true>(acc, q, mask, out, L);
 }
 
 template <class K, class S, int WARPS>
@@ -329,34 +359,40 @@ __global__ void __launch_bounds__(LANES, WARPS * 32 / LANES)
                            const int32_t* __restrict__ q,
                            const uint8_t* __restrict__ mask,
                            int32_t* __restrict__ out, long long L) {
-  select_lane<K, S, 3>(acc, q, mask, out, L);
+  add_lane<K, S, 3, true>(acc, q, mask, out, L);
 }
 
-template <class K, class S, int WARPS, int NQ>
-int launch(const int32_t* acc, const int32_t* q, const uint8_t* mask,
-           int32_t* out, long long L, void* stream) {
-  void (*kernel)(const int32_t*, const int32_t*, const uint8_t*, int32_t*,
-                 long long);
-  if constexpr (NQ == 2)
-    kernel = madd_select_kernel<K, S, WARPS>;
-  else
-    kernel = proj_add_select_kernel<K, S, WARPS>;
+template <class K, class S, int WARPS>
+__global__ void __launch_bounds__(LANES, WARPS * 32 / LANES)
+    proj_add_kernel(const int32_t* __restrict__ p,
+                    const int32_t* __restrict__ q,
+                    int32_t* __restrict__ out, long long L) {
+  add_lane<K, S, 3, false>(p, q, nullptr, out, L);
+}
+
+// Launches KERNEL(args..., L) over L lanes, first giving it the dynamic
+// shared memory that its slots S take (once per kernel).
+template <class S, auto KERNEL, class... Args>
+int launch(long long L, void* stream, Args... args) {
   static bool configured = false;
   if (S::SMEM > 0 && !configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
+      e = cudaFuncSetAttribute(KERNEL,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const long long grid = (L + LANES - 1) / LANES;
-  kernel<<<(unsigned)grid, LANES, S::SMEM, (cudaStream_t)stream>>>(
-      acc, q, mask, out, L);
+  KERNEL<<<(unsigned)grid, LANES, S::SMEM, (cudaStream_t)stream>>>(args...,
+                                                                    L);
   return (int)cudaGetLastError();
 }
+
+using G1Slots = RegSlots<G1Lazy>;
+using G2Slots = TileSlots<G2Lazy>;
 
 }  // namespace
 
@@ -365,27 +401,40 @@ int launch(const int32_t* acc, const int32_t* q, const uint8_t* mask,
 extern "C" int bz_g1_madd_select(const int32_t* acc, const int32_t* q,
                                  const uint8_t* mask, int32_t* out,
                                  long long L, long long, void* stream) {
-  return launch<G1Lazy, RegSlots<G1Lazy>, 12, 2>(acc, q, mask, out, L,
-                                                 stream);
+  return launch<G1Slots, madd_select_kernel<G1Lazy, G1Slots, 12>>(
+      L, stream, acc, q, mask, out);
 }
 
 extern "C" int bz_g1_add_select(const int32_t* acc, const int32_t* q,
                                 const uint8_t* mask, int32_t* out,
                                 long long L, long long, void* stream) {
-  return launch<G1Lazy, RegSlots<G1Lazy>, 12, 3>(acc, q, mask, out, L,
-                                                 stream);
+  return launch<G1Slots, proj_add_select_kernel<G1Lazy, G1Slots, 12>>(
+      L, stream, acc, q, mask, out);
 }
 
 extern "C" int bz_g2_madd_select(const int32_t* acc, const int32_t* q,
                                  const uint8_t* mask, int32_t* out,
                                  long long L, long long, void* stream) {
-  return launch<G2Lazy, TileSlots<G2Lazy>, 12, 2>(acc, q, mask, out, L,
-                                                  stream);
+  return launch<G2Slots, madd_select_kernel<G2Lazy, G2Slots, 12>>(
+      L, stream, acc, q, mask, out);
 }
 
 extern "C" int bz_g2_add_select(const int32_t* acc, const int32_t* q,
                                 const uint8_t* mask, int32_t* out,
                                 long long L, long long, void* stream) {
-  return launch<G2Lazy, TileSlots<G2Lazy>, 12, 3>(acc, q, mask, out, L,
-                                                  stream);
+  return launch<G2Slots, proj_add_select_kernel<G2Lazy, G2Slots, 12>>(
+      L, stream, acc, q, mask, out);
+}
+
+// p/q/out: (3*planes, 24, L), all projective
+extern "C" int bz_g1_add(const int32_t* p, const int32_t* q, int32_t* out,
+                         long long L, long long, void* stream) {
+  return launch<G1Slots, proj_add_kernel<G1Lazy, G1Slots, 16>>(L, stream, p,
+                                                               q, out);
+}
+
+extern "C" int bz_g2_add(const int32_t* p, const int32_t* q, int32_t* out,
+                         long long L, long long, void* stream) {
+  return launch<G2Slots, proj_add_kernel<G2Lazy, G2Slots, 12>>(L, stream, p,
+                                                               q, out);
 }

@@ -1,6 +1,6 @@
 // BLS12-381 Fp arithmetic with lazy reduction, for one element per
 // thread: mont_ptx.cuh's PTX carry chains over Fp.  Used by add_select.cu
-// (kernels K2-K5); K6 and K7 keep mont.cuh's fully reduced arithmetic.
+// (kernels K2-K7).
 //
 // Elements are 12 little-endian 32-bit words, in Montgomery form with
 // R = 2^384 (the same bits as the JAX package's 24 16-bit limbs).

@@ -1,6 +1,6 @@
 // Montgomery arithmetic with PTX carry chains over either BLS12-381 field,
 // for one element per thread: the field core of K1 (mont_mul.cu) and,
-// through fp_lazy.cuh, of K2-K5 (add_select.cu).  K6/K7 keep mont.cuh.
+// through fp_lazy.cuh, of K2-K7 (add_select.cu).
 //
 // An element is NW little-endian 32-bit words (Fr: 8, Fp: 12), in
 // Montgomery form with R = 2^(32 NW): the same bits as the JAX package's

@@ -28,8 +28,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-HEADERS = ("mont.cuh", "rcb15.cuh", "mont_ptx.cuh", "fp_lazy.cuh")
-SOURCES = ("mont_mul.cu", "curve_add.cu", "add_select.cu")
+HEADERS = ("mont_ptx.cuh", "fp_lazy.cuh")
+SOURCES = ("mont_mul.cu", "add_select.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -14,12 +14,15 @@ K6-K7 add with no select, out = P + Q, all projective:
 
 K2-K5 replace the Pallas kernels `_g1_madd_select_call`,
 `_g1_add_select_call`, `_g2_madd_select_call` and `_g2_add_select_call` of
-`bazuka_tpu/ops/pallas_msm.py` (CUDA source `csrc/add_select.cu`, on the
-lazy-reduction field code of `csrc/fp_lazy.cuh`); K6-K7 replace
-`_g1_add_call` and `_g2_add_call` of `bazuka_tpu/ops/pallas_curve.py` (CUDA
-source `csrc/curve_add.cu`).  For K2-K5, `mask` is a (L,) bool tensor;
-lanes where Q is infinity must be masked off by the caller (affine form
-cannot encode it).  L is any length: the kernels bounds-check their lanes.
+`bazuka_tpu/ops/pallas_msm.py`; K6-K7 replace `_g1_add_call` and
+`_g2_add_call` of `bazuka_tpu/ops/pallas_curve.py`.  All six are one CUDA
+source, `csrc/add_select.cu`, on the lazy-reduction field code of
+`csrc/fp_lazy.cuh`: K6/K7 are K3/K5 with the select compiled out.  Their
+inputs may lie anywhere in [0, 2p); their outputs are canonical, so they
+equal the plain versions limb for limb.  For K2-K5, `mask` is a (L,)
+bool tensor; lanes where Q is infinity must be masked off by the caller
+(affine form cannot encode it).  L is any length: the kernels
+bounds-check their lanes.
 
 Each wrapper runs its plain version on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises.  The plain versions are `proj_add`
@@ -47,10 +50,9 @@ K_G2_MADD = _cuda.register(_cuda.CudaKernel(
 K_G2_ADD = _cuda.register(_cuda.CudaKernel(
     "g2_add_select", _SRC, "bz_g2_add_select", 4, f"{_PALLAS}:359"))
 K_G1_FULL = _cuda.register(_cuda.CudaKernel(
-    "g1_add", "curve_add.cu", "bz_g1_add", 3,
-    "bazuka_tpu/ops/pallas_curve.py:101"))
+    "g1_add", _SRC, "bz_g1_add", 3, "bazuka_tpu/ops/pallas_curve.py:101"))
 K_G2_FULL = _cuda.register(_cuda.CudaKernel(
-    "g2_add", "curve_add.cu", "bz_g2_add", 3,
+    "g2_add", _SRC, "bz_g2_add", 3,
     "bazuka_tpu/ops/pallas_curve.py:167"))
 
 

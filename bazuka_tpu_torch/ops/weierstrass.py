@@ -11,8 +11,9 @@ Montgomery limb tensors; identity is (0, 1, 0).
 `plain=True` field adapters multiply with the plain Montgomery multiply even
 on the card: they are the reference the curve kernels are held against.
 With the default adapters, `proj_add` on CUDA tensors runs the whole
-formula in one kernel (K6 on G1, K7 on G2, `ops.curve_kernels`), at every
-batch size, as the JAX package routes it to `ops/pallas_curve.py` on a TPU.
+formula in one kernel (K6 on G1, K7 on G2, `ops.curve_kernels`, CUDA
+source `csrc/add_select.cu`), at every batch size, as the JAX package
+routes it to `ops/pallas_curve.py` on a TPU.
 
 The fixed-base multiply `batch_gen_mul` (keygen's workhorse) adds one entry
 of a window table per 8-bit window of the scalar: 32 complete adds.

@@ -38,14 +38,18 @@ Phases, each printed as one JSON line:
               groth16_verify accepts for [x] and rejects for [x + 1]; then
               the toy multiply circuit at seed b"test", which must equal the
               committed key (all ten query arrays, the head points, the VK's
-              wire bytes).
+              wire bytes).  Then one `_gen_mul_am` chunk of 65,536 scalars
+              on G1 and one on G2 under torch.profiler (`gen_mul_profile`
+              lines: device time by kernel, the rest by PyTorch kernel
+              name, idle share)
   6. kernel   each kernel replayed at every size phases 4 and 5 launched it
               with, on fresh random operands (plus the edge cases: 0 and
               p − 1 among K1's operands and the NTT's inputs, R − 1 in one
               of K1's operands against a canonical other, 0, 1 and
-              p − 1 among the inversion's; for the add-select kernels K2-K5
-              also active lanes of p − 1 and 0 in every coordinate, Z2
-              included), against its plain PyTorch
+              p − 1 among the inversion's; for the curve adds K2-K7 also
+              active lanes of p − 1 and 0 in every coordinate, Z2
+              included; K6/K7 always also at 65,535 and 65,536 lanes),
+              against its plain PyTorch
               version: bit-identical limbs, its time, the plain version's
               time and the card's bound, per size and averaged over the
               phases' launches
@@ -639,6 +643,9 @@ FULL_ADD_KERNELS = (
     (ck.K_G2_FULL, ck.g2_add_lm, ck.g2_add_lm_plain, "g2", 36),
 )
 FULL_ADD_NAMES = tuple(k[0].name for k in FULL_ADD_KERNELS)
+# lane counts at which K6/K7 are always replayed: keygen's GEN_CHUNK and
+# one less (K6's replay time at these two was bimodal on its first port)
+FULL_ADD_ALWAYS = (keygen.GEN_CHUNK - 1, keygen.GEN_CHUNK)
 K1_NAMES = (fk.K_FR.name, fk.K_FP.name, fk.K_NTT.name, fk.K_INV.name)
 # the kernels each driven path must have launched (keygen runs no NTT)
 PROOF_KERNELS = K1_NAMES + tuple(k[0].name for group in CURVE_KERNELS.values()
@@ -721,7 +728,7 @@ def curve_operands(kind: str, n_lanes: int, gen, device):
 
 
 def stress_lanes(acc, q, mask):
-    """Copies of an add-select's operands (Q affine or projective) with the
+    """Copies of a curve add's operands (Q affine or projective) with the
     top of the range: in lanes 5 mod 8 every coordinate of acc and Q is
     p − 1, in lanes 6 mod 8 the planes alternate p − 1 and 0, and both are
     active.  These points are off the curve, but RCB15 is one polynomial
@@ -810,12 +817,19 @@ def kernel_phase(sizes: dict, device):
             rows[kern.name] = summarize(per)
 
     for kern, api, plain, kind, n_mul in FULL_ADD_KERNELS:
-        n_max = max(L for L, _ in sizes[kern.name])
+        # keygen's chunk and one lane short of it, whatever the run's
+        # sizes; a size no phase launched weighs nothing in the averages
+        replay = {(n, 0): 0 for n in FULL_ADD_ALWAYS}
+        replay.update(sizes[kern.name])
+        n_max = max(L for L, _ in replay)
         # P: identity, P = Q, P = −Q in some lanes; Q: identity in others;
-        # Z ≠ 1 on both sides elsewhere
+        # Z ≠ 1 on both sides elsewhere; then every coordinate p − 1 or
+        # alternating p − 1 and 0 in lanes 5 and 6 mod 8
         p_pts, _, q_pts, _ = curve_operands(kind, n_max, gen, device)
+        p_pts, q_pts, _ = stress_lanes(
+            p_pts, q_pts, torch.ones(n_max, dtype=torch.bool, device=device))
         per = []
-        for (L, _), count in sorted(sizes[kern.name].items()):
+        for (L, _), count in sorted(replay.items()):
             p_l = p_pts[:, :, :L].contiguous()
             q_l = q_pts[:, :, :L].contiguous()
             per.append(check_kernel(
@@ -950,6 +964,8 @@ PROFILED_KERNELS = (
     ("madd_select_kernel<bz::lazy::G2Lazy", ck.K_G2_MADD.name),
     ("proj_add_select_kernel<bz::lazy::G1Lazy", ck.K_G1_ADD.name),
     ("proj_add_select_kernel<bz::lazy::G2Lazy", ck.K_G2_ADD.name),
+    ("proj_add_kernel<bz::lazy::G1Lazy", ck.K_G1_FULL.name),
+    ("proj_add_kernel<bz::lazy::G2Lazy", ck.K_G2_FULL.name),
     ("mont_mul_kernel", "mont_mul"),
     ("mont_inv_fp_kernel", fk.K_INV.name),
     ("ntt_low_kernel", fk.K_NTT.name),
@@ -976,11 +992,17 @@ def _busy_us(intervals) -> float:
     return total
 
 
+# "other" device time is also broken down by name, the longest first
+OTHER_NAMES = 12
+OTHER_NAME_CHARS = 160
+
+
 def profiled_run(run, fresh=tuple) -> dict:
     """`run(*fresh())` timed alone, then under torch.profiler (CPU and CUDA
-    activities): device time by kernel row, launches, and the device's idle
-    share, one minus the union of device activity over the wall time of the
-    call closed by a synchronise.  The profiler slows the host's launches,
+    activities): device time by kernel row, the "other" row's by device
+    kernel name (the longest OTHER_NAMES, names cut to OTHER_NAME_CHARS),
+    launches, and the device's idle share, one minus the union of device
+    activity over the wall time of the call closed by a synchronise.  The profiler slows the host's launches,
     so `idle_share` takes the unprofiled call's wall time and
     `idle_share_profiled` the profiled one's.  Where the profiler records no
     device activity, CUDA events around the whole call stand in, and the
@@ -1003,20 +1025,25 @@ def profiled_run(run, fresh=tuple) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     launches = {k: v for k, v in _cuda.counts().items() if v}
-    by_kernel, spans = {}, []
+    by_kernel, by_name, spans = {}, {}, []
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         spans.append((evt.time_range.start, evt.time_range.end))
         row = profiled_row(evt.name)
-        by_kernel[row] = (by_kernel.get(row, 0.0)
-                          + evt.time_range.end - evt.time_range.start)
+        us = evt.time_range.end - evt.time_range.start
+        by_kernel[row] = by_kernel.get(row, 0.0) + us
+        if row == "other":
+            name = evt.name[:OTHER_NAME_CHARS]
+            by_name[name] = by_name.get(name, 0.0) + us
     out = {"wall_s": wall_s, "wall_profiled_s": wall_us / 1e6,
            "launches": launches}
     if spans:
         busy = _busy_us(spans)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:OTHER_NAMES]
         out.update(source="torch.profiler",
                    device_s={k: v / 1e6 for k, v in by_kernel.items()},
+                   other_by_name_s={k: v / 1e6 for k, v in top},
                    device_busy_s=busy / 1e6,
                    idle_share=1 - busy / (wall_s * 1e6),
                    idle_share_profiled=1 - busy / wall_us)
@@ -1085,6 +1112,22 @@ def h_profile(params, cs, d, device):
           **profiled_run(h, evs)})
 
 
+def gen_mul_profile(device):
+    """One `_gen_mul_am` chunk of GEN_CHUNK random scalars on G1 and one
+    on G2 (the window tables already built), each through `profiled_run`:
+    device time of K6/K7, K1's Fp multiply and inversion, and the rest by
+    PyTorch kernel name (`_kernel_add`'s stacks and transposes, `_gather`,
+    the affine conversion's); idle share."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(ROOT_SEED)
+    scalars = random_field_limbs(fr_field(), keygen.GEN_CHUNK, gen, device)
+    for kind in ("g1", "g2"):
+        keygen._gen_mul_am(scalars, kind)  # the allocator's growth, untimed
+        emit({"phase": "gen_mul_profile", "group": kind,
+              "scalars": keygen.GEN_CHUNK,
+              **profiled_run(lambda: keygen._gen_mul_am(scalars, kind))})
+
+
 def require_launched(phase: str, names, launches: dict):
     missing = [k for k in names if launches[k] == 0]
     if missing:
@@ -1094,7 +1137,8 @@ def require_launched(phase: str, names, launches: dict):
 def keygen_phase(log_d: int, device):
     """The 2^log_d key of the synthetic circuit, counted from a cold start
     (the window tables are built in it): spot-checked, proven under and
-    verified; then the toy key against the committed file."""
+    verified; then the toy key against the committed file; then
+    `gen_mul_profile`."""
     cs = SyntheticCircuit(constraints_for(log_d), ROOT_SEED)
     comp = cs.compiled()
     d = qap.domain_size(comp.n_constraints, comp.num_inputs)
@@ -1154,6 +1198,7 @@ def keygen_phase(log_d: int, device):
     if not all(checks.values()):
         raise SystemExit(f"keygen failed its checks: {checks}")
     require_launched("keygen", KEYGEN_KERNELS, launches)
+    gen_mul_profile(device)
     return launches, sizes
 
 

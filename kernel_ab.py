@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The add-select kernels (K2-K5) and K1's entries of this tree against the
+"""The curve-add kernels (K2-K7) and K1's entries of this tree against the
 same kernels of other checkouts of the repository, on one NVIDIA GPU, in
 one process.
 
@@ -11,33 +11,40 @@ own `bazuka_tpu_torch/ops/_cuda.py` (every source of its `SOURCES`, into its
 own `_build/`; all checkouts' builds run at once), and each kernel is looked
 up by the C symbol that this tree's `_cuda.REGISTRY` gives it, in whichever
 of that checkout's libraries exports it.  This tree is labelled "tree".
-The lane counts are those of the 2^22 proof: 180,224 (the run-merge
-scan's R_cap, where K3/K5 run most), 90,112 (the drain's rounds, the bucket
-placement and the suffix scans) and 2,056 (the presum).  Steps, each
-printed as JSON lines:
+The add-select kernels' lane counts are those of the 2^22 proof: 180,224
+(the run-merge scan's R_cap, where K3/K5 run most), 90,112 (the drain's
+rounds, the bucket placement and the suffix scans) and 2,056 (the presum).
+The full adds' (K6/K7) are keygen's at 2^22: 65,536 (GEN_CHUNK, nearly
+every launch), 65,535 and 64,292 (last chunks), 4,096 and 32 (the window
+table's widest and narrowest passes), and 50,688, one full wave of 128-lane
+blocks at 12 warps per SM on 132 SMs, against which 65,536's 1.29 waves
+show what the tail wave costs.  Steps, each printed as JSON lines:
   1. build  per checkout, the ptxas registers, spill stores and shared
             memory of every kernel function in the sources that export the
             compared symbols
   2. sass   SASS instructions of one Montgomery multiply of this tree's
             field code: Fp lazy (csrc/fp_lazy.cuh on csrc/mont_ptx.cuh) and
-            fully reduced (csrc/mont.cuh), Fr as K1 computes it (mont_ptx.cuh,
-            one final subtract) and fully reduced: cuobjdump of a kernel
-            with two chained multiplies less one with one; then per
-            checkout the SASS count of every kernel function of the
-            libraries that export the compared symbols, and whether each
-            add-select function's opcodes equal this tree's
+            Fr as K1 computes it (mont_ptx.cuh, one final subtract):
+            cuobjdump of a kernel with two chained multiplies less one with
+            one; then per checkout the SASS count of every kernel function
+            in its `add_select.cu`, `mont_mul.cu` and, where it has one,
+            `curve_add.cu` (the earlier K6/K7), and whether each function of
+            its `add_select.cu` has this tree's opcodes
   3. ops    fp_lazy.cuh's mul/add/sub/canon on the card against Python ints,
             on edge and random operands in [0, 2p)
-  4. ab     per kernel (K2-K5), lane count and mask (replay: about 80 %
-            active and scattered, as chip_smoke.py replays; drain: the
-            first half of the lanes off, as the zero digits of a window sort
-            to its front; merge: lanes with lane % 8192 < 2048 active, a
-            quarter of them in contiguous blocks, as the digit-0 runs at the
-            start of each window's 8,192 run lanes are the only ones the
-            run-merge scan still merges after its first step; full), every
-            checkout bit for bit against the plain version,
+  4. ab     per add-select kernel (K2-K5), lane count and mask (replay:
+            about 80 % active and scattered, as chip_smoke.py replays;
+            drain: the first half of the lanes off, as the zero digits of a
+            window sort to its front; merge: lanes with lane % 8192 < 2048
+            active, a quarter of them in contiguous blocks, as the digit-0
+            runs at the start of each window's 8,192 run lanes are the only
+            ones the run-merge scan still merges after its first step;
+            full), every checkout bit for bit against the plain version,
             then timed in two turns, the second in the reverse order; ms is
-            the mean of the turns, beside chip_smoke.py's roofline bound
+            the mean of the turns, beside chip_smoke.py's roofline bound;
+            then K6 and K7 the same way at keygen's lane counts, every lane
+            active (mask "none"), with the replay's p − 1 and alternating
+            lanes
   5. k1     K1's entries at the 2^22 proof's sizes, bit for bit against
             their plain versions and timed the same way: the Fr multiply at
             2^22 elements (b per element, and one constant row) and 2^21,
@@ -74,6 +81,9 @@ from bazuka_tpu_torch.ops import ntt as ntt_mod
 P = fp_field().p
 PROBE_BUILD = _cuda.BUILD / "probe"
 LANES = (180_224, 90_112, 2_056)
+# K6/K7's lane counts: keygen's chunk, its last chunks, the window table's
+# widest and narrowest passes, and one full wave of 12-warp 128-lane blocks
+FULL_LANES = (65_536, 65_535, 64_292, 50_688, 4_096, 32)
 # K1's sizes: (field, elements, rows of b) for the multiply, elements for
 # the NTT's stages and for the inversion
 K1_MUL = (("Fr", 1 << 22, 1 << 22), ("Fr", 1 << 22, 1),
@@ -95,9 +105,15 @@ def select_kernels() -> dict:
     return out
 
 
+def full_add_kernels() -> dict:
+    """{name: (plain version, planes of P, Q and out, Fp multiplies per
+    lane)} of the full adds K6/K7."""
+    return {kern.name: (plain, 3 if kind == "g1" else 6, n_mul)
+            for kern, _, plain, kind, n_mul in cs.FULL_ADD_KERNELS}
+
+
 PROBE = r"""
 #include "fp_lazy.cuh"
-#include "mont.cuh"
 #include "mont_ptx.cuh"
 
 namespace {
@@ -112,12 +128,6 @@ __device__ void st(uint32_t* p, long long n, long long i,
 #pragma unroll
   for (int j = 0; j < 12; ++j) p[j * n + i] = e.w[j];
 }
-__device__ bz::lazy::Fp mont_full(const bz::lazy::Fp& a,
-                                  const bz::lazy::Fp& b) {
-  bz::lazy::Fp r;
-  bz::mont_mul<bz::Fp>(r.w, a.w, b.w);
-  return r;
-}
 }  // namespace
 
 #define PROBE_KERNEL(name, expr)                                          \
@@ -130,20 +140,13 @@ __device__ bz::lazy::Fp mont_full(const bz::lazy::Fp& a,
   }
 PROBE_KERNEL(probe_lazy_mul1, bz::lazy::mul(x, y))
 PROBE_KERNEL(probe_lazy_mul2, bz::lazy::mul(bz::lazy::mul(x, y), y))
-PROBE_KERNEL(probe_full_mul1, mont_full(x, y))
-PROBE_KERNEL(probe_full_mul2, mont_full(mont_full(x, y), y))
 
-// Fr: K1's product (mont_ptx.cuh, one final subtract) and mont.cuh's
+// Fr: K1's product (mont_ptx.cuh, one final subtract)
 namespace {
 using FrE = bz::ptx::Elem<bz::ptx::FrMod>;
 __device__ FrE k1_fr(const FrE& a, const FrE& b) {
   return bz::ptx::reduce_once<bz::ptx::FrMod, false>(
       bz::ptx::mul<bz::ptx::FrMod>(a, b));
-}
-__device__ FrE full_fr(const FrE& a, const FrE& b) {
-  FrE r;
-  bz::mont_mul<bz::Fr>(r.w, a.w, b.w);
-  return r;
 }
 }  // namespace
 
@@ -162,8 +165,6 @@ __device__ FrE full_fr(const FrE& a, const FrE& b) {
   }
 PROBE_FR(probe_k1fr_mul1, k1_fr(x, y))
 PROBE_FR(probe_k1fr_mul2, k1_fr(k1_fr(x, y), y))
-PROBE_FR(probe_fullfr_mul1, full_fr(x, y))
-PROBE_FR(probe_fullfr_mul2, full_fr(full_fr(x, y), y))
 
 // out planes: mul, add, sub, canon(a); a, b word-major (12, n)
 extern "C" __global__ void probe_ops(const uint32_t* a, const uint32_t* b,
@@ -297,7 +298,7 @@ def sass_counts(so: Path) -> dict:
 def sass_phase(probe_so: Path):
     counts = sass_counts(probe_so)
     res = {}
-    for kind in ("lazy", "full", "k1fr", "fullfr"):
+    for kind in ("lazy", "k1fr"):
         one, two = counts[f"probe_{kind}_mul1"], counts[f"probe_{kind}_mul2"]
         diff = {op: two.get(op, 0) - one.get(op, 0)
                 for op in set(one) | set(two)}
@@ -307,16 +308,17 @@ def sass_phase(probe_so: Path):
                      "by_opcode": {k: v for k, v in sorted(diff.items())
                                    if v}}
     emit({"phase": "sass",
-          "per_fp_mul": {"lazy": res["lazy"], "full": res["full"]},
+          "per_fp_mul": {"lazy": res["lazy"]},
           "bound_imad": cs.mont_mul_imads(FP_LIMBS),
-          "per_fr_mul": {"k1": res["k1fr"], "full": res["fullfr"]},
+          "per_fr_mul": {"k1": res["k1fr"]},
           "bound_imad_fr": cs.mont_mul_imads(16)})
 
 
-def kernel_sass(mods: dict, sources=("add_select.cu", "mont_mul.cu")):
-    """Per checkout, the SASS count of every kernel function in its
-    libraries of `sources`, and for each add-select function whether its
-    opcodes equal this tree's."""
+def kernel_sass(mods: dict,
+                sources=("add_select.cu", "mont_mul.cu", "curve_add.cu")):
+    """Per checkout, the SASS count of every kernel function in those of
+    its libraries of `sources` that it has, and for each function of its
+    `add_select.cu` whether its opcodes equal this tree's."""
     by = {}
     for label, mod in mods.items():
         for source in sources:
@@ -411,15 +413,16 @@ def masks(L: int, gen, device) -> dict:
             "full": torch.ones(L, dtype=torch.bool, device=device)}
 
 
-def bind(fn, symbol: str, acc, q, mask, out):
-    """A launcher of one C entry point with its arguments bound once, so
-    the timed loop spends little host time per launch."""
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
-                                           ctypes.c_longlong,
-                                           ctypes.c_void_p]
+def bind(fn, symbol: str, *tensors):
+    """A launcher of one C entry point over `tensors`' pointers (acc, Q,
+    mask, out or P, Q, out), its arguments bound once, so the timed loop
+    spends little host time per launch."""
+    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_longlong,
+                                                      ctypes.c_longlong,
+                                                      ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    args = [_cuda.ptr(t) for t in (acc, q, mask, out)]
-    L = acc.shape[-1]
+    args = [_cuda.ptr(t) for t in tensors]
+    L = tensors[0].shape[-1]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
     def launch():
@@ -429,45 +432,58 @@ def bind(fn, symbol: str, acc, q, mask, out):
     return launch
 
 
+def ab_case(fns: dict, name: str, L: int, mname: str, active: int,
+            operands, plain, nbytes: int, imads: int) -> bool:
+    """One kernel at one lane count in every checkout: bit for bit against
+    `plain(*operands)`, then timed in two turns; emits its `ab` row and
+    returns whether every checkout agreed."""
+    symbol = _cuda.REGISTRY[name].symbol
+    labels = tuple(fns)
+    outs = {b: torch.empty_like(operands[0]) for b in labels}
+    launch = {b: bind(fns[b][symbol], symbol, *operands, outs[b])
+              for b in labels}
+    for b in labels:
+        launch[b]()
+    ref = plain(*operands)
+    torch.cuda.synchronize()
+    equal = {b: bool(torch.equal(outs[b], ref)) for b in labels}
+    times = {b: [] for b in labels}
+    for turn in (labels, labels[::-1]):
+        for b in turn:
+            times[b].append(cs.cuda_ms(launch[b], 10))
+    bound_ms, bound_by = cs.bound(nbytes, imads)
+    ms = {b: sum(t) / 2 for b, t in times.items()}
+    emit({"phase": "ab", "kernel": name, "lanes": L, "mask": mname,
+          "active": active, "bound_ms": bound_ms, "bound_by": bound_by,
+          "equal": equal, "ms": ms,
+          "roofline": {b: bound_ms / t for b, t in ms.items()},
+          "turns": times})
+    return all(equal.values())
+
+
 def ab_phase(fns: dict, device) -> bool:
     """fns: {checkout label: {symbol: ctypes function}}."""
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     ok = True
-    labels = tuple(fns)
-    specs = select_kernels()
-    for name, (plain, n_acc, n_q, n_mul) in specs.items():
-        symbol = _cuda.REGISTRY[name].symbol
+    imads = cs.mont_mul_imads(FP_LIMBS)
+    for name, (plain, n_acc, n_q, n_mul) in select_kernels().items():
         for L in LANES:
             acc = random_lanes(n_acc, L, gen, device)
             q = random_lanes(n_q, L, gen, device)
             for mname, mask in masks(L, gen, device).items():
-                outs = {b: torch.empty_like(acc) for b in labels}
-                launch = {b: bind(fns[b][symbol], symbol, acc, q, mask,
-                                  outs[b]) for b in labels}
-                for b in labels:
-                    launch[b]()
-                ref = plain(acc, q, mask)
-                torch.cuda.synchronize()
-                equal = {b: bool(torch.equal(outs[b], ref)) for b in labels}
-                ok &= all(equal.values())
-                times = {b: [] for b in labels}
-                for turn in (labels, labels[::-1]):
-                    for b in turn:
-                        times[b].append(cs.cuda_ms(launch[b], 10))
                 active = int(mask.sum())
                 # acc read and out written in every lane, Q read where active
                 nbytes = (L * (2 * n_acc * FP_LIMBS * 4 + 1)
                           + active * n_q * FP_LIMBS * 4)
-                bound_ms, bound_by = cs.bound(
-                    nbytes, active * n_mul * cs.mont_mul_imads(FP_LIMBS))
-                ms = {b: sum(t) / 2 for b, t in times.items()}
-                emit({"phase": "ab", "kernel": name, "lanes": L,
-                      "mask": mname, "active": active,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "equal": equal, "ms": ms,
-                      "roofline": {b: bound_ms / t for b, t in ms.items()},
-                      "turns": times})
+                ok &= ab_case(fns, name, L, mname, active, (acc, q, mask),
+                              plain, nbytes, active * n_mul * imads)
+    for name, (plain, planes, n_mul) in full_add_kernels().items():
+        for L in FULL_LANES:
+            p = random_lanes(planes, L, gen, device)
+            q = random_lanes(planes, L, gen, device)
+            ok &= ab_case(fns, name, L, "none", L, (p, q), plain,
+                          3 * L * planes * FP_LIMBS * 4, L * n_mul * imads)
     return ok
 
 
@@ -629,7 +645,8 @@ def main(argv=None) -> int:
         for b in builds:
             b.result()
         probe_so = probe.result()
-    symbols = [_cuda.REGISTRY[k].symbol for k in select_kernels()] + [
+    symbols = [_cuda.REGISTRY[k].symbol
+               for k in (*select_kernels(), *full_add_kernels())] + [
         k.symbol for k in (fk.K_FR, fk.K_FP, fk.K_NTT, fk.K_INV)]
     fns = {label: find_symbols(label, m, symbols, optional=K1_NEW)
            for label, m in mods.items()}

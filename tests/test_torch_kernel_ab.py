@@ -1,8 +1,10 @@
-"""`kernel_ab.py`, the harness that times the add-select kernels against
+"""`kernel_ab.py`, the harness that times the curve-add kernels against
 other checkouts on the card, in its parts that run without one.
 
 - Its table of kernels names K2-K5 of `_cuda.REGISTRY`, with the planes
-  and multiplies that `chip_smoke.py` replays them with.
+  and multiplies that `chip_smoke.py` replays them with, and its table of
+  full adds K6/K7 with their C symbols, at keygen's lane counts.
+- Its probe includes only headers of `_cuda.HEADERS`.
 - Its lane counts include the run-merge scan's 180,224, and its masks the
   merge scan's, a quarter of the lanes active in contiguous blocks.
 - It loads a checkout's `_cuda.py` on its own, and that module builds from
@@ -17,6 +19,7 @@ other checkouts on the card, in its parts that run without one.
 """
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -54,6 +57,24 @@ def test_select_kernels_are_k2_to_k5():
     assert specs[ck.K_G2_ADD.name][1:] == (6, 6, 36)
     for name in specs:
         assert _cuda.REGISTRY[name].n_ptrs == 4
+
+
+def test_full_add_kernels_are_k6_and_k7():
+    specs = kernel_ab.full_add_kernels()
+    assert set(specs) == {ck.K_G1_FULL.name, ck.K_G2_FULL.name}
+    assert specs[ck.K_G1_FULL.name] == (ck.g1_add_lm_plain, 3, 12)
+    assert specs[ck.K_G2_FULL.name] == (ck.g2_add_lm_plain, 6, 36)
+    assert ck.K_G1_FULL.symbol == "bz_g1_add"
+    assert ck.K_G2_FULL.symbol == "bz_g2_add"
+    for name in specs:
+        kern = _cuda.REGISTRY[name]
+        assert kern.n_ptrs == 3 and kern.source == "add_select.cu"
+    assert {65_536, 65_535} <= set(kernel_ab.FULL_LANES)
+
+
+def test_probe_includes_only_hashed_headers():
+    includes = re.findall(r'#include "([^"]+)"', kernel_ab.PROBE)
+    assert includes and set(includes) <= set(_cuda.HEADERS)
 
 
 def test_loads_a_checkouts_cuda_module():

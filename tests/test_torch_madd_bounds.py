@@ -1,4 +1,4 @@
-"""The lazy-reduction schedule of kernels K2-K5 (`csrc/fp_lazy.cuh` on
+"""The lazy-reduction schedule of kernels K2-K7 (`csrc/fp_lazy.cuh` on
 `csrc/mont_ptx.cuh`, `csrc/add_select.cu`), modelled in Python ints on the
 CPU.
 
@@ -13,11 +13,12 @@ The CUDA code cannot run here, so this file holds its arithmetic instead:
   lies in [0, 2p), every sum below 2^384;
 - models of the two formulas, slot for slot in the kernels' order (G1
   over Fp, G2 over Fp2 with Karatsuba): the mixed add of K2/K4
-  (`madd_formula`) and the projective add of K3/K5 (`add_formula`).  Each
-  runs on lanes whose coordinates are all p - 1, all 0, alternating, and
-  seeded random, every acc pattern against every Q pattern, asserting
-  each intermediate below 2p, and its canonical outputs equal the plain
-  versions of `curve_kernels` limb for limb, a masked-off lane copying acc;
+  (`madd_formula`) and the projective add of K3/K5 and, with every lane
+  active, K6/K7 (`add_formula`).  Each runs on lanes whose coordinates are
+  all p - 1, all 0, alternating, and seeded random, every acc pattern
+  against every Q pattern, asserting each intermediate below 2p, and its
+  canonical outputs equal the plain versions of `curve_kernels` limb for
+  limb, a masked-off lane of an add-select copying acc;
 - every header a `csrc` file includes is in `_cuda.HEADERS` and every
   `.cu` in `_cuda.SOURCES`, so the library hash names every built file.
 
@@ -355,7 +356,10 @@ def _from_lm(t):
     return array_to_ints(arr).tolist()
 
 
-def _check_schedule(K, formula, plain, n_q, seed):
+def _check_schedule(K, formula, plain, n_q, seed, select=True):
+    """`formula` on the lanes of `_lanes` against `plain`: an add-select's
+    plain version (acc, q, mask) with lane 1 masked off, or with `select`
+    False a full add's (p, q) with every lane active."""
     nfp = K.NFP
     lanes = _lanes((3 + n_q) * nfp, 6 if nfp == 1 else 3, seed)
     # the 16 edge-value lanes: every acc pattern against every Q pattern
@@ -365,8 +369,11 @@ def _check_schedule(K, formula, plain, n_q, seed):
     acc = _to_lm([ln[:3 * nfp] for ln in lanes], 3 * nfp)
     q = _to_lm([ln[3 * nfp:] for ln in lanes], n_q * nfp)
     mask = torch.ones(len(lanes), dtype=torch.bool)
-    mask[1] = False  # a masked-off lane copies acc
-    want = _from_lm(plain(acc, q, mask))
+    if select:
+        mask[1] = False  # a masked-off lane copies acc
+        want = _from_lm(plain(acc, q, mask))
+    else:
+        want = _from_lm(plain(acc, q))
     for i, ln in enumerate(lanes):
         if not mask[i]:
             assert want[i] == ln[:3 * nfp]
@@ -392,6 +399,18 @@ def test_add_schedule_matches_plain(kind):
         _check_schedule(G1, add_formula, ck.add_select_lm_plain, 3, 13)
     else:
         _check_schedule(G2, add_formula, ck.add_select_g2_lm_plain, 3, 14)
+
+
+@pytest.mark.parametrize("kind", ["g1", "g2"])
+def test_full_add_schedule_matches_plain(kind):
+    """K6 (G1) and K7 (G2): `add_formula` with no select, every lane
+    active."""
+    if kind == "g1":
+        _check_schedule(G1, add_formula, ck.g1_add_lm_plain, 3, 15,
+                        select=False)
+    else:
+        _check_schedule(G2, add_formula, ck.g2_add_lm_plain, 3, 16,
+                        select=False)
 
 
 def _includes(path):

@@ -15,8 +15,8 @@ at a tiny size on the CPU.
   passes it, and fails it once one sampled query point is replaced by its
   double.
 - The kernel replay's stress lanes reach every plane of a projective Q,
-  and the drain profile's kernel names map each device kernel to its own
-  row only (K3's name is not read as K2's).
+  and the profiles' kernel names map each device kernel to its own row
+  only (K3's name is not read as K2's, nor K6's as K3's).
 """
 
 import json
@@ -175,5 +175,5 @@ def test_profiled_kernel_names_map_to_their_own_rows():
                 "RegSlots<bz::lazy::G1Lazy>, 12>(int const*, long long)")
         rows[row] = chip_smoke.profiled_row(name)
     assert rows == {row: row for _, row in chip_smoke.PROFILED_KERNELS}
-    assert len(rows) == 7
+    assert len(rows) == 9
     assert chip_smoke.profiled_row("void at::native::sort_kernel") == "other"

@@ -1,5 +1,6 @@
-"""Proof and verifying-key wire types (the Groth16 part of
-`bazuka_tpu/zk/proof.py`).
+"""Proof and verifying-key wire types: the Groth16 part of
+`bazuka_tpu/zk/proof.py`, and the verifier-key enum and contract
+descriptors that `mpn/config.py` and `zk/state.py` use.
 
 G1 points are (x, y, infinity) over Fp, G2 points ((x0,x1), (y0,y1),
 infinity) over Fp2 (reference: src/zk/groth16/mod.rs:19-38)."""
@@ -7,7 +8,7 @@ infinity) over Fp2 (reference: src/zk/groth16/mod.rs:19-38)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from ..utils import ser
 
@@ -94,3 +95,80 @@ class Groth16Proof:
     def read_from(r: ser.Reader) -> "Groth16Proof":
         return Groth16Proof(G1Wire.read_from(r), G2Wire.read_from(r),
                             G1Wire.read_from(r))
+
+
+@dataclass(frozen=True)
+class ZkVerifierKey:
+    """Groth16 VK or the Dummy test variant."""
+
+    kind: str  # "groth16" | "dummy"
+    vk: Optional[Groth16VerifyingKey] = None
+
+    @staticmethod
+    def groth16(vk: Groth16VerifyingKey) -> "ZkVerifierKey":
+        return ZkVerifierKey("groth16", vk)
+
+    @staticmethod
+    def dummy() -> "ZkVerifierKey":
+        return ZkVerifierKey("dummy")
+
+    def write_to(self, w: ser.Writer):
+        if self.kind == "groth16":
+            w.variant(0)
+            self.vk.write_to(w)
+        else:
+            w.variant(1)
+
+    @staticmethod
+    def read_from(r: ser.Reader) -> "ZkVerifierKey":
+        v = r.variant()
+        if v == 0:
+            return ZkVerifierKey.groth16(Groth16VerifyingKey.read_from(r))
+        if v == 1:
+            return ZkVerifierKey.dummy()
+        raise ValueError(f"bad verifier key tag {v}")
+
+
+@dataclass(frozen=True)
+class ZkMultiInputVerifierKey:
+    verifier_key: ZkVerifierKey
+    log4_payment_capacity: int
+
+
+@dataclass(frozen=True)
+class ZkSingleInputVerifierKey:
+    verifier_key: ZkVerifierKey
+
+
+@dataclass
+class ZkTokenContract:
+    token: object  # core.token.Token
+    mint_functions: List[ZkSingleInputVerifierKey] = field(default_factory=list)
+
+
+def write_multi_vk(w: ser.Writer, vk: ZkMultiInputVerifierKey):
+    vk.verifier_key.write_to(w)
+    w.u8(vk.log4_payment_capacity)
+
+
+def read_multi_vk(r: ser.Reader) -> ZkMultiInputVerifierKey:
+    return ZkMultiInputVerifierKey(ZkVerifierKey.read_from(r), r.u8())
+
+
+def write_single_vk(w: ser.Writer, vk: ZkSingleInputVerifierKey):
+    vk.verifier_key.write_to(w)
+
+
+def read_single_vk(r: ser.Reader) -> ZkSingleInputVerifierKey:
+    return ZkSingleInputVerifierKey(ZkVerifierKey.read_from(r))
+
+
+def write_token_contract(w: ser.Writer, tc: ZkTokenContract):
+    tc.token.write_to(w)
+    w.seq(tc.mint_functions, write_single_vk)
+
+
+def read_token_contract(r: ser.Reader) -> ZkTokenContract:
+    from ..core.token import Token
+
+    return ZkTokenContract(Token.read_from(r), r.seq(read_single_vk))

@@ -3,7 +3,8 @@
 check it.
 
     python3 chip_smoke.py              # d = Np = 2^22 (the default)
-    python3 chip_smoke.py --log-d 20   # smaller real-size proof and key
+    python3 chip_smoke.py --log-d 20   # smaller synthetic proof and key,
+                                       # and an MPN batch of 4 transfers
 
 Phases, each printed as one JSON line:
   1. device   card name and power limit (nvidia-smi), torch and CUDA versions
@@ -13,7 +14,8 @@ Phases, each printed as one JSON line:
               wire bytes equal the JAX package's (pinned below), and
               groth16_verify accepts [z] and rejects [z+1] and [z, 0]
   4. proof    one `create_proof` at d = Np = 2^22 on a synthetic circuit of
-              the MPN batch-64 update proof's size (3,275,554 constraints)
+              the MPN batch-64 update proof's size (3,275,554 constraints:
+              half boolean wires, half a multiply chain)
               and a key whose every point has a known discrete log: A, B, C
               equal the points computed on the host from scalars alone, and
               h(x) satisfies a(ρ)·b(ρ) − c(ρ) = h(ρ)·Z(ρ) at a random ρ, with
@@ -42,7 +44,26 @@ Phases, each printed as one JSON line:
               on G1 and one on G2 under torch.profiler (`gen_mul_profile`
               lines: device time by kernel, the rest by PyTorch kernel
               name, idle share)
-  6. kernel   each kernel replayed at every size phases 4 and 5 launched it
+  6. mpn      the MPN update proof, the system's real workload, on the port's
+              own host copies of the MPN state tree, witness generators and
+              circuits: 64 users (seeds b"U0".."U63") each deposit 1,000 of
+              token 123 into a fresh MpnConfig(15, 1, 3, 3, 3, 0xBEEF) state,
+              then user i pays user i + 1 (mod 64) 100 with a fee of 7
+              (`witness_gen`); the update circuit of that batch is
+              synthesised (`synthesis`: 3,275,554 constraints, 3,266,407
+              variables, both pinned) and checked on the host
+              (`satisfied_check`); its public inputs equal the JAX
+              package's (pinned below).  Then its key on the card (seed
+              b"mpn-update-b64"; K6, K7, K1's multiplies and its Fp
+              inversion must each have run), two proofs under it (r, s =
+              7, 11, which pays the NTT tables if they are cold, then 8,
+              12; K1's four entries and K2-K5 must each have run in the
+              first), each accepted by groth16_verify for the public inputs
+              and rejected with next_state + 1, with stage seconds, the
+              device's peaks and the host's peak RSS; then `msm_a` and
+              `msm_b_g2` of this witness under torch.profiler
+              (`drain_profile` lines with "cell": "mpn")
+  7. kernel   each kernel replayed at every size phases 4-6 launched it
               with, on fresh random operands (plus the edge cases: 0 and
               p − 1 among K1's operands and the NTT's inputs, R − 1 in one
               of K1's operands against a canonical other, 0, 1 and
@@ -53,8 +74,10 @@ Phases, each printed as one JSON line:
               version: bit-identical limbs, its time, the plain version's
               time and the card's bound, per size and averaged over the
               phases' launches
-Then the `{"kernels": [...]}` line (launch counts of the phases that ran
-each kernel, times averaged over their launches) and the last line
+Then the `mpn_launch_weighted` line (the replayed times weighted by the
+MPN key's and first proof's launches), the `{"kernels": [...]}` line
+(launch counts of the phases that ran each kernel, by phase and in all,
+times averaged over their launches) and the last line
 `{"ok": true, "device": {...}}`.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits with
 code 2.
@@ -65,6 +88,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -72,7 +96,10 @@ import time
 import numpy as np
 import torch
 
+from bazuka_tpu_torch.blockchain.chain import prover_commitment
+from bazuka_tpu_torch.core.transaction import ContractId, Money
 from bazuka_tpu_torch.crypto import bls12_381 as bls
+from bazuka_tpu_torch.db import Put, RamKvStore, keys as db_keys
 from bazuka_tpu_torch.fields.host import FR_GENERATOR, FR_MODULUS
 from bazuka_tpu_torch.fields.limbs import (
     FP_LIMBS,
@@ -91,6 +118,12 @@ from bazuka_tpu_torch.groth16.r1cs import (
     lc,
 )
 from bazuka_tpu_torch.groth16.verify import groth16_verify
+from bazuka_tpu_torch.mpn.chain_view import MpnChainView
+from bazuka_tpu_torch.mpn.circuits import UpdateCircuit, synthesize_circuit
+from bazuka_tpu_torch.mpn.config import MpnConfig
+from bazuka_tpu_torch.mpn.deposit import deposit
+from bazuka_tpu_torch.mpn.transitions import UpdateTransition
+from bazuka_tpu_torch.mpn.update import update
 from bazuka_tpu_torch.ops import _cuda
 from bazuka_tpu_torch.ops import curve_kernels as ck
 from bazuka_tpu_torch.ops import field_kernel as fk
@@ -98,7 +131,9 @@ from bazuka_tpu_torch.ops import msm_lm
 from bazuka_tpu_torch.ops import ntt as ntt_mod
 from bazuka_tpu_torch.ops import weierstrass as wst
 from bazuka_tpu_torch.utils import ser
+from bazuka_tpu_torch.wallet.tx_builder import TxBuilder
 from bazuka_tpu_torch.zk.proof import Groth16VerifyingKey
+from bazuka_tpu_torch.zk.state import ZkCompressedState, ZkContract
 
 P = FR_MODULUS
 R_ORDER = bls.R
@@ -127,8 +162,26 @@ TOY_PROOF_HEX = (
 # seeds the synthetic circuit, its key and the evaluation point ρ
 ROOT_SEED = 22
 
-# MPN update proof at batch 64: 3,275,554 constraints, d = 2^22.
+# The MPN update proof at batch 64 (phase 6): MpnConfig(15, 1, 3, 3, 3,
+# 0xBEEF), 64 users, deposits of 1,000 of token 123, then transfers of 100
+# with a fee of 7 in the same token; the prover's commitment is that of
+# TxBuilder(b"WORKER") at reward 10.  Its circuit has 3,275,554 constraints
+# and 3,266,407 variables (d = 2^22).
+MPN_LOG4_TREE, MPN_LOG4_TOKEN_TREE, MPN_LOG4_BATCH = 15, 1, 3
+MPN_CID, MPN_TOKEN = ContractId(0xBEEF), ContractId(123)
 MPN_B64_CONSTRAINTS = 3_275_554
+MPN_B64_VARS = 3_266_407
+MPN_KEY_SEED = b"mpn-update-b64"
+# [commitment, height, state, aux_data, next_state] of that batch from the
+# JAX package's witness generators; tests/test_torch_mpn_circuits.py holds
+# these constants against a live JAX run.
+MPN_B64_PUBLIC_INPUTS = (
+    425793916294024866280688143094958353768386253943388615763977799487240200991,
+    0,
+    46308135386502640685265267936454870375020195613555998958516818431280587886895,
+    11005667598277283744753787204972477415047986931984279515100439540866077439515,
+    8327045856812542320615866613050291403712736401878003321554717267399609843706,
+)
 
 # H100 SXM peaks: HBM3 bytes/s (NVIDIA data sheet), and 32-bit integer
 # multiply-adds/s = 132 SMs x 64 IMAD per SM per clock (CUDA C++
@@ -555,8 +608,9 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    fn()
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -597,7 +651,10 @@ def check_kernel(name, size, launches, run_kernel, run_plain, nbytes, imads,
     torch.cuda.synchronize()
     err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
     ms = cuda_ms(timed or run_kernel, reps)
-    plain_ms = cuda_ms(run_plain, 2)
+    # the checked call warmed the plain version up, and one timed call is
+    # enough beside a kernel 100-10,000 times faster (the plain inversion,
+    # a chain of PyTorch launches, takes 5-6 s at every size)
+    plain_ms = cuda_ms(run_plain, 1, warmup=False)
     bound_ms, bound_by = bound(nbytes, imads)
     row = {"phase": "kernel", "name": name, "size": list(size),
            "launches": launches, "max_abs_err": float(err), "ms": ms,
@@ -623,7 +680,25 @@ def summarize(rows):
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     out["library_ms"] = None
     out["sizes"] = len(rows)
+    out["per_size"] = rows
     return out
+
+
+def launch_weighted(summary, sizes: dict) -> dict:
+    """A kernel's replay rows weighted by one run's launches ({(n, extra):
+    count}, as `_cuda.sizes()` gives them): the launches, ms and bound_ms
+    per launch averaged over them, and launches × (ms − bound_ms)."""
+    n = ms = bound_ms = 0
+    for (size, extra), count in sizes.items():
+        row = next(r for r in summary["per_size"] if r["size"][0] == size
+                   and r["size"][1:] in ([], [extra]))
+        n += count
+        ms += row["ms"] * count
+        bound_ms += row["bound_ms"] * count
+    if not n:
+        return {"launches": 0}
+    return {"launches": n, "ms": ms / n, "bound_ms": bound_ms / n,
+            "excess_ms": ms - bound_ms}
 
 
 # per group: (kernel, wrapper, plain version, Fp multiplies per lane) for
@@ -1070,7 +1145,7 @@ def _witness(params, cs, device):
     return z_np, to_torch(z_np, device)
 
 
-def drain_profile(params, cs, device):
+def drain_profile(params, cs, device, cell="synthetic"):
     """`msm_a` and `msm_b_g2` of the proof once more, each through
     `profiled_run`: device time by kernel (K2-K5, K1, the rest) and idle
     share."""
@@ -1080,7 +1155,7 @@ def drain_profile(params, cs, device):
     c = prove._msm_c(pk.a_query[0].shape[0])
     for stage, query, run in (("msm_a", pk.a_query, msm_lm.msm_lm),
                               ("msm_b_g2", pk.b_g2_query, msm_lm.msm_lm_g2)):
-        emit({"phase": "drain_profile", "stage": stage,
+        emit({"phase": "drain_profile", "cell": cell, "stage": stage,
               **profiled_run(lambda: run(query[0], query[1], z_std, c=c,
                                          dedup_plan=plan))})
 
@@ -1202,11 +1277,150 @@ def keygen_phase(log_d: int, device):
     return launches, sizes
 
 
+def mpn_update_batch(log4_tree: int = MPN_LOG4_TREE,
+                     log4_token_tree: int = MPN_LOG4_TOKEN_TREE,
+                     log4_batch: int = MPN_LOG4_BATCH):
+    """The update batch of phase 6 at any size: 4^log4_batch users deposit
+    1,000 of MPN_TOKEN each (one deposit batch, account indices
+    registered), then user i pays user i + 1 (mod n) 100 with a fee of 7.
+    Returns (UpdateCircuit, [commitment, height, state, aux_data,
+    next_state])."""
+    n = 1 << (2 * log4_batch)
+    conf = MpnConfig(log4_tree, log4_token_tree, log4_batch, log4_batch,
+                     log4_batch, MPN_CID)
+    model = conf.state_model()
+    db = RamKvStore()
+    db.update([Put(db_keys.contract(str(MPN_CID)), ser.dumps(
+        ZkContract(ZkCompressedState.empty(model), model)))])
+    chain = MpnChainView(db)
+    users = [TxBuilder(b"U%d" % i) for i in range(n)]
+    deps = [u.deposit_mpn("", MPN_CID, u.get_mpn_address(), 1,
+                          Money(MPN_TOKEN, 1000), Money.ziesha(0))
+            for u in users]
+    idx = {}
+    deposit(MPN_CID, log4_tree, log4_token_tree, log4_batch, chain, deps,
+            idx, check_balance=False)
+    for addr, i in idx.items():
+        chain.add_mpn_account_index(addr, i)
+    txs = [users[i].create_mpn_transaction(
+        users[(i + 1) % n].get_mpn_address(), Money(MPN_TOKEN, 100),
+        Money(MPN_TOKEN, 7), 1) for i in range(n)]
+    _, pubs, transitions = update(MPN_CID, log4_tree, log4_token_tree,
+                                  log4_batch, MPN_TOKEN, chain, txs, {})
+    commitment = prover_commitment(TxBuilder(b"WORKER").get_address(), 10)
+    inputs = [commitment, *pubs.as_list()]
+    circuit = UpdateCircuit(
+        log4_tree, log4_token_tree, log4_batch, *inputs,
+        fee_token=MPN_TOKEN.scalar,
+        transitions=list(transitions) + [
+            UpdateTransition.null(log4_tree, log4_token_tree)
+            for _ in range(n - len(transitions))])
+    return circuit, inputs
+
+
+def host_peak_rss() -> int:
+    """Peak resident set of this process in bytes (Linux reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def counted(run):
+    """`run()` with the launch counts set to 0 just before it and read
+    just after: (result, (launches, sizes))."""
+    _cuda.reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (_cuda.counts(), _cuda.sizes())
+
+
+def mpn_phase(log4_batch: int, device):
+    """Phase 6: the MPN update batch from its witness to two verified
+    proofs.  Returns {"keygen", "proof", "proof_2": (launch counts,
+    sizes)}."""
+    full = log4_batch == MPN_LOG4_BATCH
+    t0 = time.perf_counter()
+    circuit, inputs = mpn_update_batch(log4_batch=log4_batch)
+    witness_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    cs = synthesize_circuit(circuit)
+    synthesis_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    unsatisfied = cs.is_satisfied()
+    satisfied_s = time.perf_counter() - t2
+    n_vars = len(cs.assignment)
+    z = cs.full_assignment()
+    checks = {
+        "satisfied": unsatisfied is None,
+        "no_cryptography_module": "cryptography" not in sys.modules,
+        "enabled_transfers": sum(t.enabled for t in circuit.transitions)
+        == len(circuit.transitions),
+    }
+    if full:  # the sizes and inputs are pinned for the default batch only
+        checks.update(
+            n_constraints_pinned=cs.n_constraints == MPN_B64_CONSTRAINTS,
+            num_vars_pinned=n_vars == MPN_B64_VARS,
+            public_inputs_equal_jax=tuple(inputs) == MPN_B64_PUBLIC_INPUTS)
+    emit({"phase": "mpn_witness", "log4_tree": MPN_LOG4_TREE,
+          "log4_token_tree": MPN_LOG4_TOKEN_TREE, "log4_batch": log4_batch,
+          "transfers": len(circuit.transitions),
+          "n_constraints": cs.n_constraints, "num_vars": n_vars,
+          "n_terms": [int(a.shape[0]) for a in cs.compiled().rows],
+          "vars_not_0_or_1": sum(1 for v in z if v > 1),
+          "witness_gen_s": witness_s, "synthesis_s": synthesis_s,
+          "satisfied_check_s": satisfied_s,
+          "host_peak_rss": host_peak_rss(), "public_inputs": inputs,
+          **checks})
+    if not all(checks.values()):
+        raise SystemExit(f"MPN witness failed its checks: {checks}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    record = {}
+    t3 = time.perf_counter()
+    params, key_run = counted(lambda: keygen.generate_parameters(
+        cs, seed=MPN_KEY_SEED, device=device, record=record))
+    key_s = time.perf_counter() - t3
+    emit({"phase": "mpn_keygen", "d": qap.domain_size(cs.n_constraints,
+                                                      cs.num_inputs),
+          "Np": params.pk.a_query[0].shape[0], "total_s": key_s,
+          "stage_s": record["seconds"],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "max_memory_requested": peak_requested(),
+          "host_peak_rss": host_peak_rss(), "launches": key_run[0]})
+    require_launched("MPN keygen", KEYGEN_KERNELS, key_run[0])
+
+    runs = [key_run]
+    tampered = inputs[:4] + [(inputs[4] + 1) % P]
+    for r, s in ((7, 11), (8, 12)):
+        torch.cuda.reset_peak_memory_stats()
+        record = {}
+        t4 = time.perf_counter()
+        proof, run = counted(lambda: prove.create_proof(
+            params, cs, r=r, s=s, device=device, record=record))
+        total = time.perf_counter() - t4
+        runs.append(run)
+        verdicts = {"verify_accepts": groth16_verify(params.vk, inputs, proof),
+                    "verify_rejects_next_state_plus_1":
+                    not groth16_verify(params.vk, tampered, proof)}
+        emit({"phase": "mpn_proof", "r": r, "s": s, "total_s": total,
+              "stage_s": record["seconds"],
+              "n_heavy_vals": record["n_heavy_vals"],
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "max_memory_requested": peak_requested(),
+              "host_peak_rss": host_peak_rss(), "launches": run[0],
+              **verdicts})
+        if not all(verdicts.values()):
+            raise SystemExit(f"MPN proof failed verification: {verdicts}")
+    require_launched("MPN proof", PROOF_KERNELS, runs[1][0])
+    drain_profile(params, cs, device, cell="mpn")
+    return dict(zip(("keygen", "proof", "proof_2"), runs))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-d", type=int, default=22,
-                    help="log2 of the real-size proof's and key's domain "
-                         "(default 22)")
+                    help="log2 of the synthetic proof's and key's domain "
+                         "(default 22; below 22 the MPN batch is cut to 4 "
+                         "transfers)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1233,9 +1447,17 @@ def main(argv=None) -> int:
     proof_run = proof_phase(args.log_d, device)
     torch.cuda.empty_cache()  # the synthetic key is gone before keygen
     keygen_run = keygen_phase(args.log_d, device)
+    torch.cuda.empty_cache()  # so is the synthetic circuit's key
+    mpn_runs = mpn_phase(MPN_LOG4_BATCH if args.log_d >= 22 else 1, device)
+    mpn_run = merge_phases(*mpn_runs.values())
     torch.cuda.empty_cache()
-    launches, sizes = merge_phases(proof_run, keygen_run)
+    launches, sizes = merge_phases(proof_run, keygen_run, mpn_run)
     rows = kernel_phase(sizes, device)
+    # the MPN key's and first proof's launches at the replayed times
+    emit({"phase": "mpn_launch_weighted", **{
+        run: {name: launch_weighted(rows[name], mpn_runs[run][1][name])
+              for name in _cuda.REGISTRY}
+        for run in ("keygen", "proof")}})
 
     kernels = []
     for name, k in _cuda.REGISTRY.items():
@@ -1245,7 +1467,8 @@ def main(argv=None) -> int:
             "source": f"bazuka_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces, "launches": launches[name],
             "launches_by_phase": {"proof": proof_run[0][name],
-                                  "keygen": keygen_run[0][name]},
+                                  "keygen": keygen_run[0][name],
+                                  "mpn": mpn_run[0][name]},
             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms", "sizes")},

@@ -1,8 +1,10 @@
 """The port stands alone, and `chip_smoke.py`'s real-size proof phase holds
 at a tiny size on the CPU.
 
-- Importing every `bazuka_tpu_torch` module, `chip_smoke` and `kernel_ab`
-  adds no `jax` and no `bazuka_tpu` module to `sys.modules` (compared
+- Importing every `bazuka_tpu_torch` module (the MPN circuits, witness
+  generators and wallet among them), `chip_smoke` and `kernel_ab` adds no
+  `jax`, no `bazuka_tpu` and no `cryptography` or `nacl` module to
+  `sys.modules`, nor does an Ed25519 signature and its check (compared
   before and after, since a host may pre-import jax).
 - `chip_smoke.py` exits non-zero and prints no result without a CUDA
   device, and alone in a directory without the package.
@@ -48,11 +50,20 @@ def test_port_imports_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         bazuka_tpu_torch.__path__, "bazuka_tpu_torch."))
     assert "bazuka_tpu_torch.ops.msm_lm" in mods
+    assert {"bazuka_tpu_torch.mpn.circuits", "bazuka_tpu_torch.crypto.ed25519",
+            "bazuka_tpu_torch.wallet.tx_builder"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
         f"for m in {mods!r} + ['chip_smoke', 'kernel_ab']:\n"
         "    importlib.import_module(m)\n"
+        # signing and verifying import nothing later either
+        "from bazuka_tpu_torch.core.transaction import ContractId, Money\n"
+        "from bazuka_tpu_torch.wallet.tx_builder import TxBuilder\n"
+        "b, t = TxBuilder(b'x'), ContractId(5)\n"
+        "d = b.deposit_mpn('', t, b.get_mpn_address(), 1, Money(t, 1),\n"
+        "                  Money.ziesha(0))\n"
+        "assert d.payment.verify_signature()\n"
         "added = sorted(set(sys.modules) - before)\n"
         "print(json.dumps(added))\n"
     )
@@ -61,9 +72,11 @@ def test_port_imports_no_jax():
                          check=True)
     added = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in added
-           if m.split(".")[0] in ("jax", "jaxlib", "bazuka_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "bazuka_tpu",
+                                  "cryptography", "nacl")]
     assert not bad, bad
     assert "bazuka_tpu_torch.groth16.prove" in added
+    assert "bazuka_tpu_torch.mpn.circuits" in added
 
 
 def _run_smoke(cwd):
@@ -177,3 +190,18 @@ def test_profiled_kernel_names_map_to_their_own_rows():
     assert rows == {row: row for _, row in chip_smoke.PROFILED_KERNELS}
     assert len(rows) == 9
     assert chip_smoke.profiled_row("void at::native::sort_kernel") == "other"
+
+
+def test_launch_weighted_reads_each_launch_size_s_row():
+    rows = [{"size": [8, 2], "launches": 3, "ms": 1.0, "plain_ms": 2.0,
+             "bound_ms": 0.5, "bound_by": "bytes", "max_abs_err": 0.0},
+            {"size": [8, 8], "launches": 1, "ms": 3.0, "plain_ms": 2.0,
+             "bound_ms": 1.0, "bound_by": "bytes", "max_abs_err": 0.0}]
+    summary = chip_smoke.summarize(rows)
+    got = chip_smoke.launch_weighted(summary, {(8, 2): 2, (8, 8): 1})
+    assert got == {"launches": 3, "ms": 5 / 3, "bound_ms": 2 / 3,
+                   "excess_ms": 3.0}
+    assert chip_smoke.launch_weighted(summary, {}) == {"launches": 0}
+    # one-element sizes (NTT, inversion, curve adds) match on n alone
+    ntt = chip_smoke.summarize([{**rows[0], "size": [16]}])
+    assert chip_smoke.launch_weighted(ntt, {(16, 0): 4})["excess_ms"] == 2.0

@@ -266,6 +266,9 @@ class LimbField:
     def sub(self, a, b):
         return self._narrow(self._sub64(self._wide(a), self._wide(b)))
 
+    def double(self, a):
+        return self.add(a, a)
+
     def neg(self, a):
         a64 = self._wide(a)
         d, _ = sub_raw(self._p64(a.device).expand(a64.shape), a64)

@@ -4,7 +4,8 @@ check it.
 
     python3 chip_smoke.py              # d = Np = 2^22 (the default)
     python3 chip_smoke.py --log-d 20   # smaller synthetic proof and key,
-                                       # and an MPN batch of 4 transfers
+                                       # an MPN batch of 4 transfers, and
+                                       # smaller phases 7-8
 
 Phases, each printed as one JSON line:
   1. device   card name and power limit (nvidia-smi), torch and CUDA versions
@@ -62,8 +63,45 @@ Phases, each printed as one JSON line:
               and rejected with next_state + 1, with stage seconds, the
               device's peaks and the host's peak RSS; then `msm_a` and
               `msm_b_g2` of this witness under torch.profiler
-              (`drain_profile` lines with "cell": "mpn")
-  7. kernel   each kernel replayed at every size phases 4-6 launched it
+              (`drain_profile` lines with "cell": "mpn"; `msm_a` also
+              read the earlier way: the same trace's parsed event tree,
+              and a profile of the CPU and CUDA activities)
+  7. poseidon the batched Poseidon of `ops/poseidon.py` on the card (every
+              multiply a launch of K1 Fr, which must have run), at stress
+              sizes (no caller hashes batches on the card yet): the 16
+              golden vectors (arity 1-16); a dense 4-ary tree of 4^9
+              random leaves hashed level by level (9 calls, 87,381
+              arity-4 hashes), checked limb for limb against the same hash
+              with K1's plain multiply on the card on the bottom level's
+              first 1,024 hashes and every level of 4,096 or fewer, and
+              on 256 random bottom-level hashes and one leaf's whole path
+              to the root against the host Poseidon; one batch of 2^20
+              arity-4 hashes, 256 random ones against the host; hashes/s
+              of the tree and the batch beside the bound of the card's
+              IMAD rate, peaks, K1's launch sizes; then the batch under
+              torch.profiler (`poseidon_profile`)
+  8. eddsa    JubJub EdDSA of `ops/jubjub_batch.py` on the card (K1 Fr
+              must have run): the signatures of phase 6's transfers in one
+              `batch_eddsa_verify` call, all valid; one mainnet block of
+              256 MPN transfers (users b"U0".."U255") in one call, all
+              valid: seconds per block and verifies/s beside the bound,
+              the headline; then a stress size, 4,096 keys and signatures
+              made on the host (seeds b"E0".., in four worker processes),
+              every 8th row tampered with in turn (message + 1, s + 1,
+              another signer's key, R moved along the curve, R off the
+              curve), verified in one call; `batch_base_mul` and
+              `batch_scalar_mul` alone on 4,096 scalars (0, 1, ORDER − 1
+              and ORDER among them); the block's verification under
+              torch.profiler (`eddsa_profile`); then the same three calls
+              on CPU copies of the first 256 rows (the plain path, in
+              three of the workers), equal, while the verdicts are held to
+              those of the construction and the host JubJub.verify's on
+              every tampered row and 256 random valid ones, and the
+              products to the host point_mul on the four edge rows and
+              256 random ones; peak, K1's launch sizes.  Below
+              --log-d 22 phases 7 and 8 run at 4^6 leaves, 2^16 batch
+              hashes and 256 signatures
+  9. kernel   each kernel replayed at every size phases 4-8 launched it
               with, on fresh random operands (plus the edge cases: 0 and
               p − 1 among K1's operands and the NTT's inputs, R − 1 in one
               of K1's operands against a canonical other, 0, 1 and
@@ -75,7 +113,9 @@ Phases, each printed as one JSON line:
               time and the card's bound, per size and averaged over the
               phases' launches
 Then the `mpn_launch_weighted` line (the replayed times weighted by the
-MPN key's and first proof's launches), the `{"kernels": [...]}` line
+MPN key's and first proof's launches), the `launch_weighted` line (K1 Fr
+weighted by phase 7's and phase 8's launches), the `{"kernels": [...]}`
+line
 (launch counts of the phases that ran each kernel, by phase and in all,
 times averaged over their launches) and the last line
 `{"ok": true, "device": {...}}`.  Any failed check raises, so the script
@@ -86,7 +126,9 @@ code 2.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import multiprocessing
 import os
 import resource
 import subprocess
@@ -99,6 +141,7 @@ import torch
 from bazuka_tpu_torch.blockchain.chain import prover_commitment
 from bazuka_tpu_torch.core.transaction import ContractId, Money
 from bazuka_tpu_torch.crypto import bls12_381 as bls
+from bazuka_tpu_torch.crypto import jubjub as jj
 from bazuka_tpu_torch.db import Put, RamKvStore, keys as db_keys
 from bazuka_tpu_torch.fields.host import FR_GENERATOR, FR_MODULUS
 from bazuka_tpu_torch.fields.limbs import (
@@ -127,11 +170,20 @@ from bazuka_tpu_torch.mpn.update import update
 from bazuka_tpu_torch.ops import _cuda
 from bazuka_tpu_torch.ops import curve_kernels as ck
 from bazuka_tpu_torch.ops import field_kernel as fk
+from bazuka_tpu_torch.ops.jubjub_batch import (
+    batch_base_mul,
+    batch_eddsa_verify,
+    batch_scalar_mul,
+    to_affine_host,
+    to_extended,
+)
 from bazuka_tpu_torch.ops import msm_lm
 from bazuka_tpu_torch.ops import ntt as ntt_mod
+from bazuka_tpu_torch.ops.poseidon import poseidon_batch, poseidon_batch_mont
 from bazuka_tpu_torch.ops import weierstrass as wst
 from bazuka_tpu_torch.utils import ser
 from bazuka_tpu_torch.wallet.tx_builder import TxBuilder
+from bazuka_tpu_torch.zk.poseidon_host import params_for_width, poseidon
 from bazuka_tpu_torch.zk.proof import Groth16VerifyingKey
 from bazuka_tpu_torch.zk.state import ZkCompressedState, ZkContract
 
@@ -183,6 +235,52 @@ MPN_B64_PUBLIC_INPUTS = (
     8327045856812542320615866613050291403712736401878003321554717267399609843706,
 )
 
+# Phase 7 (poseidon): poseidon([0..arity-1]) for arity 1..16, the
+# reference's golden vectors (src/zk/poseidon/mod.rs:115-149);
+# tests/test_torch_poseidon.py holds them to tests/test_poseidon.py's.
+POSEIDON_GOLDEN = (
+    27570695323925995271701303589514430472678239829854264417883970952440292573348,
+    6587584068506488869767403662460111870851709789694140241572542699619538605403,
+    11065162352055215342882956665028806373710857144056793315618843991574034541745,
+    27235437669367044799899874028200860893259633691548428184978833555844239099210,
+    39122459949963443953695513827515422590145971775731164693081784821001500765271,
+    14822541353598610072073758561600133199190898904019472753356348939736178856242,
+    32119039894111509393883349238591117345166479914896997011437787663480858229324,
+    43492451727584886720328582747486156090763899250669626113572962177392830153672,
+    23782521420058920239581486714235942233162905749917547091367129332109148150964,
+    1950261058989975858181381159018748926889722679795466088362775920975943983890,
+    47763254094198808066374497304963224993617822320088130264863862435119574697678,
+    44035521596650126254580286193043646937530018324533162959282567836364656349620,
+    45248278075433906869650374149660178834237900630357739057386839430392516698709,
+    30558481537294127342952125056358924225581206938869947160862017954746718634085,
+    10702554392571105609953066033536365418563149392782994983402406449789876497692,
+    34319425623279664398659085846739236990635100324667226409415519671072072962346,
+)
+# Stress sizes of the batched hash, not traffic: no caller in either package
+# hashes a batch on the card outside its tests and bench.py.  A dense 4-ary
+# tree of 4^9 leaves (the state tree's arity, hashed a level at a time, as
+# the JAX module's docstring means it) and one flat batch of 2^20 arity-4
+# hashes (bench.py's Poseidon shape, the batch at the card's scale: its MDS
+# product alone holds three 1.68 GB tensors); below --log-d 22, 4^6 and
+# 2^16.
+POSEIDON_LOG4_LEAVES, POSEIDON_LOG2_BATCH = 9, 20
+# Phase 8 (eddsa).  The traffic: one mainnet block, 256 MPN transfers
+# (bazuka_tpu/config/blockchain.py: MPN_LOG4_UPDATE_BATCH_SIZE = 4), whose
+# signatures a validator checks (core/transaction.py:
+# MpnTransaction.verify_signature); users b"U0".."U255", user i paying user
+# i + 1 (mod 256) as in phase 6.  Then a stress size, not traffic: 4,096
+# signatures (16 blocks) in one call, 256 below --log-d 22.  Row i is
+# signed by the key of seed b"E%d" % i over the message EDDSA_MSG0 + i.
+MPN_BLOCK_TRANSFERS = 4 ** 4
+EDDSA_SIGS = 4096
+EDDSA_MSG0 = 10 ** 6
+# how every 8th row of the batch is tampered, in turn
+EDDSA_TAMPER = ("msg_plus_1", "s_plus_1", "other_pk", "other_r_on_curve",
+                "r_off_curve")
+# rows checked against the host (random) and on the plain path (the first)
+HOST_ROWS = 256
+PLAIN_ROWS = 256
+
 # H100 SXM peaks: HBM3 bytes/s (NVIDIA data sheet), and 32-bit integer
 # multiply-adds/s = 132 SMs x 64 IMAD per SM per clock (CUDA C++
 # Programming Guide, arithmetic throughput, compute capability 9.0) x the
@@ -212,6 +310,55 @@ def ntt_imads(n: int) -> int:
     Fr: one multiply per butterfly, less those whose twiddle is 1 (the
     first of each group, n - 1 in all)."""
     return (n // 2 * (n.bit_length() - 1) - (n - 1)) * mont_mul_imads(16)
+
+
+def mont_redc_imads(n_limbs: int) -> int:
+    """The same for a Montgomery reduction alone (out of Montgomery form:
+    the other operand is 1)."""
+    s = n_limbs // 2
+    return 2 * s * s + s
+
+
+def poseidon_products(t: int) -> dict:
+    """Fr products of one Poseidon-t hash in `ops/poseidon.py` as written:
+    the S-box x^5 (two squarings and a multiply) on every lane of a full
+    round and on lane 0 of a partial one, and the dense t × t MDS product
+    in every round."""
+    p = params_for_width(t)
+    sboxes = p.full_rounds * t + p.partial_rounds
+    return {"mul": sboxes + (p.full_rounds + p.partial_rounds) * t * t,
+            "sqr": 2 * sboxes, "redc": 0}
+
+
+def _plus(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in ("mul", "sqr", "redc")}
+
+
+# Fr products of one signature in `ops/jubjub_batch._verify_fn`: the
+# Poseidon-6 hash h; h out of Montgomery form (a reduction alone); T = X·Y
+# of A and of R; nine multiplies per complete add (255 of s·B, 255 of h·A,
+# and R + h·A); each of h·A's 255 doublings at what a doubling needs, four
+# multiplies and four squarings (dbl-2008-hwcd; the code doubles by the
+# complete add); four in the projective compare.
+EDDSA_PRODUCTS = _plus(poseidon_products(6),
+                       {"mul": 2 + 9 * (255 + 255 + 1) + 4 * 255 + 4,
+                        "sqr": 4 * 255, "redc": 1})
+
+
+def product_imads(counts: dict) -> int:
+    """32-bit multiply-adds of Fr products counted as above, each priced
+    at its own kind: multiply, squaring, reduction."""
+    return (counts["mul"] * mont_mul_imads(FR_LIMBS)
+            + counts["sqr"] * mont_sqr_imads(FR_LIMBS)
+            + counts["redc"] * mont_redc_imads(FR_LIMBS))
+
+
+def rate_bound(counts: dict) -> float:
+    """Items per second that the card's IMAD rate allows at the given Fr
+    products per item (their bytes bind far less).  It bounds the schedule
+    as written (the dense MDS of every round, the 255-step ladders), with
+    each product at its cheapest kind."""
+    return IMAD_PER_S / product_imads(counts)
 
 
 def bound(nbytes: int, imads: int):
@@ -1072,56 +1219,109 @@ OTHER_NAMES = 12
 OTHER_NAME_CHARS = 160
 
 
-def profiled_run(run, fresh=tuple) -> dict:
-    """`run(*fresh())` timed alone, then under torch.profiler (CPU and CUDA
-    activities): device time by kernel row, the "other" row's by device
-    kernel name (the longest OTHER_NAMES, names cut to OTHER_NAME_CHARS),
-    launches, and the device's idle share, one minus the union of device
-    activity over the wall time of the call closed by a synchronise.  The profiler slows the host's launches,
-    so `idle_share` takes the unprofiled call's wall time and
-    `idle_share_profiled` the profiled one's.  Where the profiler records no
-    device activity, CUDA events around the whole call stand in, and the
-    row says so.  `fresh` makes the arguments outside the timed region."""
-    from torch.profiler import ProfilerActivity, profile
+def _raw_device_events(prof):
+    """(name, start µs, length µs) of every device event of a trace, read
+    from its raw events."""
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            yield evt.name(), evt.start_ns() / 1e3, evt.duration_ns() / 1e3
 
-    args = fresh()
+
+def _parsed_device_events(prof):
+    """The same, read from torch.profiler's parsed event tree: about 0.3
+    ms per event to build."""
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            yield (evt.name, evt.time_range.start,
+                   evt.time_range.end - evt.time_range.start)
+
+
+def _device_tally(events, wall_s: float, wall_us: float) -> dict:
+    """Device time by kernel row, the "other" row's by device kernel name
+    (the longest OTHER_NAMES, names cut to OTHER_NAME_CHARS), busy time
+    (the union of the events) and idle shares over the unprofiled
+    (`wall_s`) and the profiled (`wall_us`) call; {} without events."""
+    by_kernel, by_name, spans = {}, {}, []
+    for name, start, us in events:
+        spans.append((start, start + us))
+        row = profiled_row(name)
+        by_kernel[row] = by_kernel.get(row, 0.0) + us
+        if row == "other":
+            name = name[:OTHER_NAME_CHARS]
+            by_name[name] = by_name.get(name, 0.0) + us
+    if not spans:
+        return {}
+    busy = _busy_us(spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:OTHER_NAMES]
+    return {"device_events": len(spans),
+            "device_s": {k: v / 1e6 for k, v in by_kernel.items()},
+            "other_by_name_s": {k: v / 1e6 for k, v in top},
+            "device_busy_s": busy / 1e6,
+            "idle_share": 1 - busy / (wall_s * 1e6),
+            "idle_share_profiled": 1 - busy / wall_us}
+
+
+def _profiled(run, args, activities):
+    """`run(*args)` under torch.profiler, closed by a synchronise: (the
+    profiler, wall µs, the end's perf_counter)."""
+    from torch.profiler import profile
+
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(*args)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    args = fresh()
-    torch.cuda.synchronize()
-    _cuda.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run(*args)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        t1 = time.perf_counter()
+    return prof, (t1 - t0) * 1e6, t1
+
+
+def profiled_run(run, fresh=tuple, wall_s=None, crosscheck=False) -> dict:
+    """`run(*fresh())` timed alone (unless the caller has just timed the
+    same call and passes its `wall_s`), then under torch.profiler with the
+    CUDA activity only (no row reads the host's op events, and a call of
+    a million launches makes millions of them): `_device_tally` of the
+    trace's raw events, launches, and `read_s`, the time from the profiled
+    call's end to the end of the reading.  The device's idle share is one
+    minus the union of device activity over the wall time of the call
+    closed by a synchronise; the profiler slows the host's launches, so
+    `idle_share` takes the unprofiled call's wall time and
+    `idle_share_profiled` the profiled one's.  The raw events are read,
+    not the parsed event tree, which takes about 0.3 ms per event to build
+    (minutes for a call of a million launches).  `crosscheck` also reads
+    the same trace's parsed event tree (`parsed_same_trace`) and profiles
+    the call once more with the CPU and CUDA activities, read from the
+    parsed tree (`cpu_and_cuda_parsed`): the recording and reading of the
+    earlier profiles.  Where the profiler records no device activity,
+    CUDA events around the whole call stand in, and the row says so.
+    `fresh` makes the arguments outside the timed region."""
+    from torch.profiler import ProfilerActivity
+
+    if wall_s is None:
+        args = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    args = fresh()
+    _cuda.reset_counts()
+    prof, wall_us, t1 = _profiled(run, args, [ProfilerActivity.CUDA])
     launches = {k: v for k, v in _cuda.counts().items() if v}
-    by_kernel, by_name, spans = {}, {}, []
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        spans.append((evt.time_range.start, evt.time_range.end))
-        row = profiled_row(evt.name)
-        us = evt.time_range.end - evt.time_range.start
-        by_kernel[row] = by_kernel.get(row, 0.0) + us
-        if row == "other":
-            name = evt.name[:OTHER_NAME_CHARS]
-            by_name[name] = by_name.get(name, 0.0) + us
+    tally = _device_tally(_raw_device_events(prof), wall_s, wall_us)
     out = {"wall_s": wall_s, "wall_profiled_s": wall_us / 1e6,
-           "launches": launches}
-    if spans:
-        busy = _busy_us(spans)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:OTHER_NAMES]
-        out.update(source="torch.profiler",
-                   device_s={k: v / 1e6 for k, v in by_kernel.items()},
-                   other_by_name_s={k: v / 1e6 for k, v in top},
-                   device_busy_s=busy / 1e6,
-                   idle_share=1 - busy / (wall_s * 1e6),
-                   idle_share_profiled=1 - busy / wall_us)
+           "read_s": time.perf_counter() - t1, "launches": launches}
+    if crosscheck:
+        t2 = time.perf_counter()
+        same = _device_tally(_parsed_device_events(prof), wall_s, wall_us)
+        same["read_s"] = time.perf_counter() - t2
+        old, old_us, t3 = _profiled(run, fresh(), [ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA])
+        both = _device_tally(_parsed_device_events(old), wall_s, old_us)
+        both.update(wall_profiled_s=old_us / 1e6,
+                    read_s=time.perf_counter() - t3)
+        out.update(parsed_same_trace=same, cpu_and_cuda_parsed=both)
+    if tally:
+        out.update(source="torch.profiler", **tally)
     else:
         args = fresh()
         t_a = torch.cuda.Event(enable_timing=True)
@@ -1148,7 +1348,8 @@ def _witness(params, cs, device):
 def drain_profile(params, cs, device, cell="synthetic"):
     """`msm_a` and `msm_b_g2` of the proof once more, each through
     `profiled_run`: device time by kernel (K2-K5, K1, the rest) and idle
-    share."""
+    share; in the MPN cell `msm_a` also read the earlier way
+    (`crosscheck`)."""
     pk = params.pk
     z_np, z_std = _witness(params, cs, device)
     plan = msm_lm.make_dedup_plan(z_np)
@@ -1157,7 +1358,8 @@ def drain_profile(params, cs, device, cell="synthetic"):
                               ("msm_b_g2", pk.b_g2_query, msm_lm.msm_lm_g2)):
         emit({"phase": "drain_profile", "cell": cell, "stage": stage,
               **profiled_run(lambda: run(query[0], query[1], z_std, c=c,
-                                         dedup_plan=plan))})
+                                         dedup_plan=plan),
+                             crosscheck=cell == "mpn" and stage == "msm_a")})
 
 
 def h_profile(params, cs, d, device):
@@ -1277,6 +1479,15 @@ def keygen_phase(log_d: int, device):
     return launches, sizes
 
 
+def mpn_transfers(users) -> list:
+    """User i of n pays user i + 1 (mod n) 100 of MPN_TOKEN with a fee of
+    7, nonce 1: the signed MPN transfers of phase 6's batch."""
+    n = len(users)
+    return [users[i].create_mpn_transaction(
+        users[(i + 1) % n].get_mpn_address(), Money(MPN_TOKEN, 100),
+        Money(MPN_TOKEN, 7), 1) for i in range(n)]
+
+
 def mpn_update_batch(log4_tree: int = MPN_LOG4_TREE,
                      log4_token_tree: int = MPN_LOG4_TOKEN_TREE,
                      log4_batch: int = MPN_LOG4_BATCH):
@@ -1284,7 +1495,7 @@ def mpn_update_batch(log4_tree: int = MPN_LOG4_TREE,
     1,000 of MPN_TOKEN each (one deposit batch, account indices
     registered), then user i pays user i + 1 (mod n) 100 with a fee of 7.
     Returns (UpdateCircuit, [commitment, height, state, aux_data,
-    next_state])."""
+    next_state], the n signed transfers)."""
     n = 1 << (2 * log4_batch)
     conf = MpnConfig(log4_tree, log4_token_tree, log4_batch, log4_batch,
                      log4_batch, MPN_CID)
@@ -1302,9 +1513,7 @@ def mpn_update_batch(log4_tree: int = MPN_LOG4_TREE,
             idx, check_balance=False)
     for addr, i in idx.items():
         chain.add_mpn_account_index(addr, i)
-    txs = [users[i].create_mpn_transaction(
-        users[(i + 1) % n].get_mpn_address(), Money(MPN_TOKEN, 100),
-        Money(MPN_TOKEN, 7), 1) for i in range(n)]
+    txs = mpn_transfers(users)
     _, pubs, transitions = update(MPN_CID, log4_tree, log4_token_tree,
                                   log4_batch, MPN_TOKEN, chain, txs, {})
     commitment = prover_commitment(TxBuilder(b"WORKER").get_address(), 10)
@@ -1315,7 +1524,7 @@ def mpn_update_batch(log4_tree: int = MPN_LOG4_TREE,
         transitions=list(transitions) + [
             UpdateTransition.null(log4_tree, log4_token_tree)
             for _ in range(n - len(transitions))])
-    return circuit, inputs
+    return circuit, inputs, txs
 
 
 def host_peak_rss() -> int:
@@ -1334,11 +1543,11 @@ def counted(run):
 
 def mpn_phase(log4_batch: int, device):
     """Phase 6: the MPN update batch from its witness to two verified
-    proofs.  Returns {"keygen", "proof", "proof_2": (launch counts,
-    sizes)}."""
+    proofs.  Returns ({"keygen", "proof", "proof_2": (launch counts,
+    sizes)}, the batch's signed transfers)."""
     full = log4_batch == MPN_LOG4_BATCH
     t0 = time.perf_counter()
-    circuit, inputs = mpn_update_batch(log4_batch=log4_batch)
+    circuit, inputs, txs = mpn_update_batch(log4_batch=log4_batch)
     witness_s = time.perf_counter() - t0
     t1 = time.perf_counter()
     cs = synthesize_circuit(circuit)
@@ -1412,7 +1621,343 @@ def mpn_phase(log4_batch: int, device):
             raise SystemExit(f"MPN proof failed verification: {verdicts}")
     require_launched("MPN proof", PROOF_KERNELS, runs[1][0])
     drain_profile(params, cs, device, cell="mpn")
-    return dict(zip(("keygen", "proof", "proof_2"), runs))
+    return dict(zip(("keygen", "proof", "proof_2"), runs)), txs
+
+
+# ------------------------------------------------ Poseidon and JubJub EdDSA
+
+
+def size_rows(sizes: dict) -> list:
+    """A kernel's {(n, extra): launches} as sorted [n, extra, launches]."""
+    return [[n, extra, c] for (n, extra), c in sorted(sizes.items())]
+
+
+def merkle_levels(leaves):
+    """The levels of a dense 4-ary tree over (4^k, 16) Montgomery leaf
+    limbs, each hashed in one call: [leaves, level 1, ..., root (1, 16)]."""
+    levels = [leaves]
+    while levels[-1].shape[0] > 1:
+        levels.append(poseidon_batch_mont(
+            levels[-1].reshape(-1, 4, FR_LIMBS)))
+    return levels
+
+
+def host_hashes_agree(groups, hashes) -> bool:
+    """(n, arity, 16) Montgomery inputs and their (n, 16) hashes against
+    the host Poseidon."""
+    F = fr_field()
+    ins, outs = F.decode(groups.cpu()), F.decode(hashes.cpu())
+    return all(poseidon([int(v) for v in row]) == int(h)
+               for row, h in zip(ins, outs))
+
+
+def sample(n: int, k: int, rng):
+    """Up to k distinct random indices below n, sorted."""
+    return np.sort(rng.choice(n, size=min(k, n), replace=False))
+
+
+def plain_mul(a, b):
+    """Kernel K1's plain version over Fr, on the operands' device."""
+    return fk.mont_mul_plain(fr_field(), a, b)
+
+
+def tree_checks(levels, rng, n_first: int = 1024, small: int = 4096):
+    """A tree from `merkle_levels`, limb for limb against the same hash
+    with the plain multiply (`plain_mul`, on the levels' device: the plain
+    path) on the bottom level's first n_first hashes and on every level of
+    at most `small` hashes; then HOST_ROWS random bottom-level hashes and
+    every hash on one random leaf's path to the root against the host
+    Poseidon.  Returns ({check: bool}, hashes held to the plain path)."""
+    ins, outs = [], []
+    for k in range(1, len(levels)):
+        n = levels[k].shape[0]
+        if n > small:
+            n = n_first if k == 1 else 0
+        ins.append(levels[k - 1][:4 * n].reshape(n, 4, FR_LIMBS))
+        outs.append(levels[k][:n])
+    # one plain call over every level's checked hashes
+    plain = poseidon_batch_mont(torch.cat(ins), mul=plain_mul)
+    cpu = [lv.cpu() for lv in levels]
+    groups = cpu[0].reshape(-1, 4, FR_LIMBS)
+    rows = torch.from_numpy(sample(groups.shape[0], HOST_ROWS, rng))
+    leaf = int(rng.integers(cpu[0].shape[0]))
+    path = [host_hashes_agree(
+                cpu[k - 1].reshape(-1, 4, FR_LIMBS)[None, leaf >> 2 * k],
+                cpu[k][None, leaf >> 2 * k])
+            for k in range(1, len(cpu))]
+    return {"tree_plain_equal": torch.equal(plain, torch.cat(outs)),
+            "tree_host_sampled": host_hashes_agree(groups[rows],
+                                                   cpu[1][rows]),
+            "tree_root_path": all(path),
+            "tree_one_root": tuple(cpu[-1].shape) == (1, FR_LIMBS)
+            }, plain.shape[0]
+
+
+def poseidon_phase(log4_leaves: int, log2_batch: int, device):
+    """Phase 7: the 16 golden vectors, a dense 4-ary tree of 4^log4_leaves
+    random leaves hashed level by level (one call per level), and one flat
+    batch of 2^log2_batch random arity-4 hashes, all on the card and
+    checked; then the batch under torch.profiler.  Returns (launch counts,
+    sizes)."""
+    F = fr_field()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(ROOT_SEED)
+    rng = np.random.default_rng(ROOT_SEED)
+    leaves = random_field_limbs(F, 4 ** log4_leaves, gen, device)
+    batch = random_field_limbs(F, 4 << log2_batch, gen, device).view(
+        -1, 4, F.n)
+    torch.cuda.synchronize()
+    # what earlier phases left allocated (cached tables) is in every peak
+    resident = torch.cuda.memory_allocated()
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    golden = [int(poseidon_batch(np.array([list(range(a))], dtype=object),
+                                 device=device)[0])
+              for a in range(1, len(POSEIDON_GOLDEN) + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    levels = merkle_levels(leaves)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tree_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t3 = time.perf_counter()
+    out = poseidon_batch_mont(batch)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    batch_peak = torch.cuda.max_memory_allocated()
+    launches, sizes = _cuda.counts(), _cuda.sizes()
+
+    t5 = time.perf_counter()
+    checks, n_plain = tree_checks(levels, rng)
+    checks["golden"] = golden == list(POSEIDON_GOLDEN)
+    rows = torch.from_numpy(sample(batch.shape[0], HOST_ROWS, rng))
+    checks["batch_host_sampled"] = host_hashes_agree(batch.cpu()[rows],
+                                                     out.cpu()[rows])
+    n_tree = sum(lv.shape[0] for lv in levels[1:])
+    products = poseidon_products(5)
+    emit({"phase": "poseidon", "phase_s": time.perf_counter() - t0,
+          "golden_s": t1 - t0,
+          "tree_leaves": leaves.shape[0], "tree_hashes": n_tree,
+          "tree_calls": len(levels) - 1, "tree_s": t2 - t1,
+          "tree_hashes_per_s": n_tree / (t2 - t1),
+          "tree_max_memory_allocated": tree_peak,
+          "batch_hashes": batch.shape[0], "batch_s": t4 - t3,
+          "batch_hashes_per_s": batch.shape[0] / (t4 - t3),
+          "batch_max_memory_allocated": batch_peak,
+          "memory_allocated_at_start": resident,
+          "fr_products_per_hash": products,
+          "imads_per_hash": product_imads(products),
+          "bound_hashes_per_s": rate_bound(products),
+          "launches": launches,
+          "k1_fr_sizes": size_rows(sizes[fk.K_FR.name]),
+          "plain_checked_hashes": n_plain,
+          "check_s": time.perf_counter() - t5, **checks})
+    if not all(checks.values()):
+        raise SystemExit(f"Poseidon failed its checks: {checks}")
+    require_launched("poseidon", (fk.K_FR.name,), launches)
+    emit({"phase": "poseidon_profile", "hashes": batch.shape[0],
+          **profiled_run(lambda: poseidon_batch_mont(batch),
+                         wall_s=t4 - t3)})
+    return launches, sizes
+
+
+def _signed_row(i: int):
+    """Row i of the EdDSA batch: (public key, its affine point, the
+    signature of EDDSA_MSG0 + i) under the key of seed b"E%d" % i."""
+    pub, sk = jj.JubJub.generate_keys(b"E%d" % i)
+    return pub, sk.public_point, jj.JubJub.sign(sk, EDDSA_MSG0 + i)
+
+
+def _plain_call(job):
+    """One of the EdDSA phase's calls on CPU tensors (the plain path), on
+    one intra-op thread: its tensors are a few KiB, and the three calls
+    run side by side in worker processes."""
+    torch.set_num_threads(1)
+    name, args = job
+    if name == "verify":
+        return batch_eddsa_verify(*args, device="cpu")
+    mul = batch_base_mul if name == "base_mul" else batch_scalar_mul
+    return mul(fr_field(), *args)
+
+
+def eddsa_batch(n: int, pmap=map) -> dict:
+    """n rows signed on the host (`pmap` over `_signed_row`), every 8th
+    row tampered with in turn by EDDSA_TAMPER: the message + 1, s + 1, the
+    next row's key, R + B for R, and R off the curve.  Returns lists "pub"
+    (compressed keys), "pks" (affine keys), "msgs", "sigs", "tamper" (the
+    kind or None) and the expected verdicts "expected"."""
+    pub, pks, sigs = (list(c) for c in zip(*pmap(_signed_row, range(n))))
+    msgs = [EDDSA_MSG0 + i for i in range(n)]
+    tamper = [None] * n
+    for i in range(0, n, 8):
+        kind = tamper[i] = EDDSA_TAMPER[(i // 8) % len(EDDSA_TAMPER)]
+        r, s = sigs[i].r, sigs[i].s
+        if kind == "msg_plus_1":
+            msgs[i] += 1
+        elif kind == "s_plus_1":
+            sigs[i] = jj.Signature(r, s + 1)
+        elif kind == "other_pk":
+            pub[i], pks[i] = pub[(i + 1) % n], pks[(i + 1) % n]
+        elif kind == "other_r_on_curve":
+            sigs[i] = jj.Signature(jj.point_add(r, jj.BASE), s)
+        else:
+            sigs[i] = jj.Signature((r[0], (r[1] + 1) % jj.P), s)
+    return {"pub": pub, "pks": pks, "msgs": msgs, "sigs": sigs,
+            "tamper": tamper,
+            "expected": np.array([t is None for t in tamper])}
+
+
+def eddsa_checks(batch: dict, verdicts, rng) -> dict:
+    """Verdicts of `batch_eddsa_verify` on an `eddsa_batch` against the
+    ones expected from its construction, and against the host
+    `JubJub.verify` on every tampered row and HOST_ROWS random valid
+    rows."""
+    exp = batch["expected"]
+    valid = np.flatnonzero(exp)
+    rows = np.sort(np.concatenate([np.flatnonzero(~exp),
+                                   valid[sample(len(valid), HOST_ROWS,
+                                                rng)]]))
+    host = [jj.JubJub.verify(batch["pub"][i], batch["msgs"][i],
+                             batch["sigs"][i]) for i in rows]
+    return {"verdicts_expected": bool(np.array_equal(verdicts, exp)),
+            "host_agrees": host == [bool(verdicts[i]) for i in rows]}
+
+
+def transfer_args(txs) -> tuple:
+    """`batch_eddsa_verify`'s arguments for signed MPN transfers: each
+    sender's key, the transfer's hash, its signature."""
+    return ([tx.src_pub_key.decompress() for tx in txs],
+            [tx.hash() for tx in txs], [tx.sig for tx in txs])
+
+
+def mul_scalars(n: int, rng) -> list:
+    """n scalars for the multiplies alone: 0, 1, ORDER − 1 and ORDER, then
+    random values below p (all 255 bits)."""
+    edge = [0, 1, jj.ORDER - 1, jj.ORDER]
+    return (edge + [int.from_bytes(rng.bytes(32), "little") % jj.P
+                    for _ in range(n - len(edge))])[:n]
+
+
+def mul_checks(scalars, pks, sb, sp, rows) -> dict:
+    """`batch_base_mul` (sb) and `batch_scalar_mul` of the points pks (sp)
+    against the host `point_mul` on the given rows."""
+    F = fr_field()
+    idx = torch.tensor(rows, device=sb[0].device)
+    got_b = to_affine_host(F, tuple(c[idx] for c in sb))
+    got_s = to_affine_host(F, tuple(c[idx] for c in sp))
+    return {"base_mul_host": list(got_b) == [
+                jj.point_mul(jj.BASE, scalars[i]) for i in rows],
+            "scalar_mul_host": list(got_s) == [
+                jj.point_mul(pks[i], scalars[i]) for i in rows]}
+
+
+# The EdDSA phase's worker processes: the signing of its n rows (about
+# 8 ms of host time each) and the plain path's three calls.  A fixed
+# count, so that the host's memory does not grow with its cores.
+HOST_WORKERS = 4
+
+
+def eddsa_phase(n: int, txs, device):
+    """Phase 8: the MPN batch's signed transfers verified in one call; one
+    mainnet block of MPN_BLOCK_TRANSFERS transfers, signed on the host in
+    this process, verified in one call (the headline); n signatures made
+    on the host (every 8th tampered), verified in one call; then
+    `batch_base_mul` and `batch_scalar_mul` alone on n scalars; the
+    block's verification under torch.profiler; then the same three calls
+    on CPU copies of the first PLAIN_ROWS rows in worker processes while
+    this one checks the verdicts and products against the host.  Returns
+    (launch counts, sizes)."""
+    F = fr_field()
+    rng = np.random.default_rng(ROOT_SEED)
+    t0 = time.perf_counter()
+    block = mpn_transfers([TxBuilder(b"U%d" % i)
+                           for i in range(MPN_BLOCK_TRANSFERS)])
+    block_build_s = time.perf_counter() - t0
+    with multiprocessing.get_context("spawn").Pool(HOST_WORKERS) as pool:
+        t1 = time.perf_counter()
+        batch = eddsa_batch(n, functools.partial(pool.map, chunksize=32))
+        sign_s = time.perf_counter() - t1
+        args = (batch["pks"], batch["msgs"], batch["sigs"])
+        tx_args, block_args = transfer_args(txs), transfer_args(block)
+        scalars = mul_scalars(n, rng)
+        s_std = F.encode(np.array(scalars, dtype=object), mont=False,
+                         device=device)
+        pts = to_extended(F, *(F.encode(np.array([p[c] for p in args[0]],
+                                                 dtype=object), device=device)
+                               for c in (0, 1)))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        _cuda.reset_counts()
+        t2 = time.perf_counter()
+        tx_ok = batch_eddsa_verify(*tx_args, device=device)
+        t3 = time.perf_counter()
+        block_ok = batch_eddsa_verify(*block_args, device=device)
+        t4 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        verdicts = batch_eddsa_verify(*args, device=device)
+        t5 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        sb = batch_base_mul(F, s_std)
+        sp = batch_scalar_mul(F, pts, s_std)
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        launches, sizes = _cuda.counts(), _cuda.sizes()
+        require_launched("eddsa", (fk.K_FR.name,), launches)
+        profile = profiled_run(
+            lambda: batch_eddsa_verify(*block_args, device=device),
+            wall_s=t4 - t3)
+
+        # the plain path runs in three workers while this process checks
+        t7 = time.perf_counter()
+        m = min(PLAIN_ROWS, n)
+        s_cpu = s_std[:m].cpu()
+        plain = pool.map_async(_plain_call, [
+            ("verify", tuple(a[:m] for a in args)),
+            ("base_mul", (s_cpu,)),
+            ("scalar_mul", (tuple(c[:m].cpu() for c in pts), s_cpu))],
+            chunksize=1)
+        checks = {"transfers_all_true": len(tx_ok) == len(txs)
+                  and bool(tx_ok.all()),
+                  "block_all_true": len(block_ok) == len(block)
+                  and bool(block_ok.all())}
+        checks.update(eddsa_checks(batch, verdicts, rng))
+        # the four edge scalars and HOST_ROWS random others
+        rows = list(range(min(4, n))) + (
+            sample(max(n - 4, 0), HOST_ROWS, rng) + 4).tolist()
+        checks.update(mul_checks(scalars, args[0], sb, sp, rows))
+        check_s = time.perf_counter() - t7
+        plain_v, plain_sb, plain_sp = plain.get()
+        plain_s = time.perf_counter() - t7
+    checks.update(
+        plain_verify_equal=bool(np.array_equal(plain_v, verdicts[:m])),
+        plain_base_mul_equal=all(torch.equal(a[:m].cpu(), b)
+                                 for a, b in zip(sb, plain_sb)),
+        plain_scalar_mul_equal=all(torch.equal(a[:m].cpu(), b)
+                                   for a, b in zip(sp, plain_sp)))
+    bound = rate_bound(EDDSA_PRODUCTS)
+    emit({"phase": "eddsa", "phase_s": time.perf_counter() - t0,
+          "block_transfers": len(block), "block_build_host_s": block_build_s,
+          "block_verify_s": t4 - t3,
+          "block_verifies_per_s": len(block) / (t4 - t3),
+          "fr_products_per_verify": EDDSA_PRODUCTS,
+          "imads_per_verify": product_imads(EDDSA_PRODUCTS),
+          "bound_verifies_per_s": bound,
+          "block_bound_s": len(block) / bound,
+          "transfers": len(txs), "transfers_verify_s": t3 - t2,
+          "signatures": n, "tampered": int((~batch["expected"]).sum()),
+          "sign_host_s": sign_s, "host_workers": HOST_WORKERS,
+          "verify_s": t5 - t4, "verifies_per_s": n / (t5 - t4),
+          "max_memory_allocated": peak,
+          "memory_allocated_at_start": resident, "muls_alone_s": t6 - t5,
+          "launches": launches,
+          "k1_fr_sizes": size_rows(sizes[fk.K_FR.name]),
+          "check_s": check_s, "plain_rows": m, "plain_s": plain_s,
+          **checks})
+    if not all(checks.values()):
+        raise SystemExit(f"EdDSA failed its checks: {checks}")
+    emit({"phase": "eddsa_profile", "signatures": len(block), **profile})
+    return launches, sizes
 
 
 def main(argv=None) -> int:
@@ -1420,7 +1965,9 @@ def main(argv=None) -> int:
     ap.add_argument("--log-d", type=int, default=22,
                     help="log2 of the synthetic proof's and key's domain "
                          "(default 22; below 22 the MPN batch is cut to 4 "
-                         "transfers)")
+                         "transfers, the Poseidon tree and batch to 4^6 "
+                         "leaves and 2^16 hashes, the EdDSA batch to 256 "
+                         "signatures)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1448,16 +1995,30 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()  # the synthetic key is gone before keygen
     keygen_run = keygen_phase(args.log_d, device)
     torch.cuda.empty_cache()  # so is the synthetic circuit's key
-    mpn_runs = mpn_phase(MPN_LOG4_BATCH if args.log_d >= 22 else 1, device)
+    small = args.log_d < 22
+    mpn_runs, mpn_txs = mpn_phase(1 if small else MPN_LOG4_BATCH, device)
     mpn_run = merge_phases(*mpn_runs.values())
     torch.cuda.empty_cache()
-    launches, sizes = merge_phases(proof_run, keygen_run, mpn_run)
+    poseidon_run = poseidon_phase(6 if small else POSEIDON_LOG4_LEAVES,
+                                  16 if small else POSEIDON_LOG2_BATCH,
+                                  device)
+    torch.cuda.empty_cache()
+    eddsa_run = eddsa_phase(256 if small else EDDSA_SIGS, mpn_txs, device)
+    torch.cuda.empty_cache()
+    launches, sizes = merge_phases(proof_run, keygen_run, mpn_run,
+                                   poseidon_run, eddsa_run)
     rows = kernel_phase(sizes, device)
     # the MPN key's and first proof's launches at the replayed times
     emit({"phase": "mpn_launch_weighted", **{
         run: {name: launch_weighted(rows[name], mpn_runs[run][1][name])
               for name in _cuda.REGISTRY}
         for run in ("keygen", "proof")}})
+    # K1 Fr, the one kernel of phases 7-8, weighted by each one's launches
+    emit({"phase": "launch_weighted", **{
+        phase: {fk.K_FR.name: launch_weighted(rows[fk.K_FR.name],
+                                              run[1][fk.K_FR.name])}
+        for phase, run in (("poseidon", poseidon_run),
+                           ("eddsa", eddsa_run))}})
 
     kernels = []
     for name, k in _cuda.REGISTRY.items():
@@ -1468,7 +2029,9 @@ def main(argv=None) -> int:
             "replaces": k.replaces, "launches": launches[name],
             "launches_by_phase": {"proof": proof_run[0][name],
                                   "keygen": keygen_run[0][name],
-                                  "mpn": mpn_run[0][name]},
+                                  "mpn": mpn_run[0][name],
+                                  "poseidon": poseidon_run[0][name],
+                                  "eddsa": eddsa_run[0][name]},
             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms", "sizes")},

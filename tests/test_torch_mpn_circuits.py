@@ -197,7 +197,7 @@ def _jax_update_batch(log4_tree, log4_token, log4_batch):
 
 
 def test_chip_smoke_batch_matches_jax():
-    circuit, inputs = chip_smoke.mpn_update_batch(3, 1, 1)
+    circuit, inputs, txs = chip_smoke.mpn_update_batch(3, 1, 1)
     jinputs, jtrans = _jax_update_batch(3, 1, 1)
     assert inputs == jinputs
     assert ([dataclasses.asdict(t) for t in circuit.transitions]
@@ -205,6 +205,7 @@ def test_chip_smoke_batch_matches_jax():
     assert all(t.enabled for t in circuit.transitions)
     assert (circuit.commitment, circuit.height, circuit.state,
             circuit.aux_data, circuit.next_state) == tuple(inputs)
+    assert len(txs) == 4 and all(tx.verify_signature() for tx in txs)
 
 
 def test_chip_smoke_public_inputs_are_jax_s():

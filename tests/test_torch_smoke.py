@@ -18,7 +18,13 @@ at a tiny size on the CPU.
   double.
 - The kernel replay's stress lanes reach every plane of a projective Q,
   and the profiles' kernel names map each device kernel to its own row
-  only (K3's name is not read as K2's, nor K6's as K3's).
+  only (K3's name is not read as K2's, nor K6's as K3's); a profile's
+  device time is summed by row and its busy time is the union of its
+  events.
+- The `poseidon` and `eddsa` phases' checks at a tiny size on the plain
+  path (a 4^2-leaf tree, 4 signatures): they pass, and fail once one limb
+  of a tree level is wrong, a verdict is flipped or a multiply's scalar
+  is another.
 """
 
 import json
@@ -34,10 +40,12 @@ import torch
 import bazuka_tpu_torch
 import chip_smoke
 from bazuka_tpu_torch.crypto import bls12_381 as bls
+from bazuka_tpu_torch.crypto import jubjub as tjj
 from bazuka_tpu_torch.fields.limbs import fp_field, fr_field
 from bazuka_tpu_torch.groth16 import keygen, qap
 from bazuka_tpu_torch.groth16.prove import _pad_rows, compute_h_mont, create_proof
 from bazuka_tpu_torch.groth16.sparse import DeviceR1CS, encode_mont
+from bazuka_tpu_torch.ops import jubjub_batch as jb
 
 # The shapes here are tiny: one intra-op thread per test process keeps
 # parallel test workers from oversubscribing the cores.
@@ -51,7 +59,9 @@ def test_port_imports_no_jax():
         bazuka_tpu_torch.__path__, "bazuka_tpu_torch."))
     assert "bazuka_tpu_torch.ops.msm_lm" in mods
     assert {"bazuka_tpu_torch.mpn.circuits", "bazuka_tpu_torch.crypto.ed25519",
-            "bazuka_tpu_torch.wallet.tx_builder"} <= set(mods)
+            "bazuka_tpu_torch.wallet.tx_builder",
+            "bazuka_tpu_torch.ops.poseidon",
+            "bazuka_tpu_torch.ops.jubjub_batch"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
@@ -77,6 +87,7 @@ def test_port_imports_no_jax():
     assert not bad, bad
     assert "bazuka_tpu_torch.groth16.prove" in added
     assert "bazuka_tpu_torch.mpn.circuits" in added
+    assert "bazuka_tpu_torch.ops.jubjub_batch" in added
 
 
 def _run_smoke(cwd):
@@ -192,6 +203,23 @@ def test_profiled_kernel_names_map_to_their_own_rows():
     assert chip_smoke.profiled_row("void at::native::sort_kernel") == "other"
 
 
+def test_device_tally_sums_rows_and_busy_union():
+    # overlapping events count once in the busy time, each in its row
+    events = [("void bz::mont_mul_kernel<16>", 0.0, 5.0),
+              ("void at::native::cat", 3.0, 4.0),
+              ("void at::native::cat", 20.0, 1.0),
+              ("void at::native::fill", 21.0, 2.0)]
+    got = chip_smoke._device_tally(events, wall_s=1e-4, wall_us=50.0)
+    assert got["device_events"] == 4
+    assert got["device_s"] == {"mont_mul": 5e-6, "other": 7e-6}
+    assert list(got["other_by_name_s"]) == ["void at::native::cat",
+                                            "void at::native::fill"]
+    assert got["device_busy_s"] == 10e-6
+    assert got["idle_share"] == 1 - 10 / 100
+    assert got["idle_share_profiled"] == 1 - 10 / 50
+    assert chip_smoke._device_tally([], 1.0, 1.0) == {}
+
+
 def test_launch_weighted_reads_each_launch_size_s_row():
     rows = [{"size": [8, 2], "launches": 3, "ms": 1.0, "plain_ms": 2.0,
              "bound_ms": 0.5, "bound_by": "bytes", "max_abs_err": 0.0},
@@ -205,3 +233,46 @@ def test_launch_weighted_reads_each_launch_size_s_row():
     # one-element sizes (NTT, inversion, curve adds) match on n alone
     ntt = chip_smoke.summarize([{**rows[0], "size": [16]}])
     assert chip_smoke.launch_weighted(ntt, {(16, 0): 4})["excess_ms"] == 2.0
+
+
+def test_poseidon_and_eddsa_checks_at_tiny_size():
+    F = fr_field()
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    rng = np.random.default_rng(3)
+    levels = chip_smoke.merkle_levels(
+        chip_smoke.random_field_limbs(F, 16, gen, "cpu"))
+    assert [lv.shape[0] for lv in levels] == [16, 4, 1]
+    checks, n_plain = chip_smoke.tree_checks(levels, rng)
+    assert all(checks.values()), checks
+    assert n_plain == 5
+    bad = [lv.clone() for lv in levels]
+    bad[1][2, 7] ^= 1  # one wrong limb in level 1
+    checks, _ = chip_smoke.tree_checks(bad, rng)
+    assert not checks["tree_plain_equal"]
+    assert not checks["tree_host_sampled"]
+
+    batch = chip_smoke.eddsa_batch(4)
+    assert batch["tamper"] == ["msg_plus_1", None, None, None]
+    verdicts = jb.batch_eddsa_verify(batch["pks"], batch["msgs"],
+                                     batch["sigs"], device="cpu")
+    assert list(verdicts) == [False, True, True, True]
+    assert all(chip_smoke.eddsa_checks(batch, verdicts, rng).values())
+    flipped = verdicts.copy()
+    flipped[2] = False
+    assert not any(chip_smoke.eddsa_checks(batch, flipped, rng).values())
+
+    scalars = chip_smoke.mul_scalars(4, rng)
+    assert scalars == [0, 1, tjj.ORDER - 1, tjj.ORDER]
+    s_std = F.encode(np.array(scalars, dtype=object), mont=False,
+                     device="cpu")
+    pks = batch["pks"]
+    pts = jb.to_extended(F, *(F.encode(np.array([p[c] for p in pks],
+                                                dtype=object), device="cpu")
+                              for c in (0, 1)))
+    sb = jb.batch_base_mul(F, s_std)
+    sp = jb.batch_scalar_mul(F, pts, s_std)
+    rows = [0, 1, 2, 3]
+    assert all(chip_smoke.mul_checks(scalars, pks, sb, sp, rows).values())
+    other = [1, 0] + scalars[2:]
+    assert not any(chip_smoke.mul_checks(other, pks, sb, sp, rows).values())

@@ -33,7 +33,10 @@
 //       memory (k = min(10, log2 n): 32 KiB per block), then one launch per remaining stage reads u and v of its
 //       pair straight from the (n/2h, 2, h) layout and writes u + w v and
 //       u - w v, out of place, alternating x and y.  Stage s takes its
-//       twiddles from rows [2^s - 1, 2^(s+1) - 1) of tw.  Each pass moves
+//       twiddles from rows [2^s - 1, 2^(s+1) - 1) of tw.  Given a row
+//       length m < n, x is n/m rows each transformed on its own (the
+//       four-step NTT's row transforms, bazuka_tpu/ops/ntt.py:263):
+//       stages 0..log2(m)-1, tw the row length's table.  Each pass moves
 //       2n rows and each butterfly costs one multiply, so the passes are
 //       bytes-bound; the low pass saves k - 1 of them.
 //   bz_mont_inv_fp     out = a^(p-2) (0 -> 0): one thread per element,
@@ -320,30 +323,35 @@ extern "C" int bz_mont_mul_fp(const int32_t* a, const int32_t* b,
 }
 
 // x: (n, 16) bit-reversed Montgomery limbs, transformed in place; y: (n,
-// 16) scratch; tw: (n - 1, 16) packed stage twiddles.  The low pass goes
-// to y when an odd number of single stages follows, so the last stage
-// writes x.
+// 16) scratch; tw: (m - 1, 16) packed stage twiddles of the row length m.
+// x holds n / m rows of m elements (m = 0 or n: one row, the whole
+// array; m a power of two, n any multiple of it), each transformed on its
+// own: stages 0..log2(m) - 1.  A
+// butterfly of stage s < log2(m) pairs rows u and u + 2^s inside one
+// aligned block of 2^(s+1) <= m, so it never crosses a row: the low pass
+// and the single-stage launches index the whole array as they would for
+// one row.  The low pass goes to y when an odd number of single stages
+// follows, so the last stage writes x.
 extern "C" int bz_ntt_stages_fr(int32_t* x, int32_t* y, const int32_t* tw,
-                                long long n, long long unused,
-                                void* stream) {
-  (void)unused;
-  if (n < 1 || n > MAX_ELEMS || (n & (n - 1)) != 0 || misaligned(x) ||
-      misaligned(y) || misaligned(tw))
+                                long long n, long long m, void* stream) {
+  if (m == 0) m = n;
+  if (n < 1 || n > MAX_ELEMS || m < 1 || (m & (m - 1)) != 0 || n % m != 0 ||
+      misaligned(x) || misaligned(y) || misaligned(tw))
     return (int)cudaErrorInvalidValue;
-  int log_n = 0;
-  while ((1LL << log_n) < n) ++log_n;
-  if (log_n == 0) return 0;
-  const int k = log_n < NTT_LOW_MAX ? log_n : NTT_LOW_MAX;
-  const int m = 1 << k;
+  int log_m = 0;
+  while ((1LL << log_m) < m) ++log_m;
+  if (log_m == 0) return 0;
+  const int k = log_m < NTT_LOW_MAX ? log_m : NTT_LOW_MAX;
+  const int b = 1 << k;
   cudaStream_t st = (cudaStream_t)stream;
-  int32_t* cur = ((log_n - k) % 2) ? y : x;
+  int32_t* cur = ((log_m - k) % 2) ? y : x;
   ntt_low_kernel<<<(unsigned)(n >> k),
-                   m / 2 < NTT_THREADS ? m / 2 : NTT_THREADS,
-                   (size_t)m * 8 * 4, st>>>(x, cur, tw, k);
+                   b / 2 < NTT_THREADS ? b / 2 : NTT_THREADS,
+                   (size_t)b * 8 * 4, st>>>(x, cur, tw, k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((n / 2 + NTT_THREADS - 1) / NTT_THREADS);
-  for (int s = k; s < log_n; ++s) {
+  for (int s = k; s < log_m; ++s) {
     int32_t* next = cur == x ? y : x;
     ntt_stage_kernel<<<grid, NTT_THREADS, 0, st>>>(cur, next, tw,
                                                    (uint32_t)(n / 2), s);

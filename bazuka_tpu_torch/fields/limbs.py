@@ -74,8 +74,73 @@ def to_torch(a, device="cuda") -> torch.Tensor:
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """int32 limb tensor -> uint32 numpy limbs (same bits)."""
-    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+    """int32 limb tensor -> uint32 numpy limbs, int16 (narrow) -> uint16
+    (same bits)."""
+    a = t.detach().cpu().contiguous().numpy()
+    return a.view(np.uint16 if t.dtype == torch.int16 else np.uint32)
+
+
+# ------------------------------------------------------- the narrow form
+#
+# Every limb is a 16-bit payload, so half of an int32 limb tensor's bytes
+# are zeros.  Keys and parked tensors keep the narrow form (the JAX
+# package's uint16 limbs and uint8 flags): on the card int16 limbs, a
+# payload v >= 2^15 held as v - 2^16, and uint8 flags; on the host uint16
+# and uint8 numpy arrays.  The kernels take the wide form.
+
+_UPLOAD_BYTES = 64 << 20  # host -> device copies of a narrow array, per slice
+
+
+def narrow_limbs(t: torch.Tensor) -> torch.Tensor:
+    """int32 limbs of 16-bit payloads -> int16 limbs of the same low 16
+    bits (a copy, half the bytes); int16 passes through."""
+    if t.dtype == torch.int16:
+        return t
+    if t.dtype != torch.int32:
+        raise TypeError(f"narrow_limbs takes int32 limbs, not {t.dtype}")
+    return t.contiguous().view(torch.int16)[..., 0::2].contiguous()
+
+
+def widen_limbs(t: torch.Tensor) -> torch.Tensor:
+    """int16 limbs -> the kernels' int32 limbs (a copy; the cast extends
+    the sign, the mask takes it off again); int32 passes through."""
+    if t.dtype == torch.int32:
+        return t
+    if t.dtype != torch.int16:
+        raise TypeError(f"widen_limbs takes int16 limbs, not {t.dtype}")
+    return t.to(torch.int32).bitwise_and_(MASK)
+
+
+def widen_flags(t: torch.Tensor) -> torch.Tensor:
+    """uint8 0/1 flags -> bool; bool passes through."""
+    return t if t.dtype == torch.bool else t != 0
+
+
+def narrow_np(a: np.ndarray) -> np.ndarray:
+    """Host limbs -> uint16, flags (1-D) -> uint8; narrow arrays (a key's
+    memory-mapped files) pass through uncopied."""
+    if a.dtype in (np.uint16, np.uint8):
+        return a
+    return np.asarray(a, dtype=np.uint8 if a.ndim == 1 else np.uint16)
+
+
+def narrow_to_device(a: np.ndarray, device) -> torch.Tensor:
+    """Host limbs or flags (uint32 or narrow, a memory map too) -> the
+    narrow form on `device` (int16 limbs, uint8 flags), copied a slice of
+    at most _UPLOAD_BYTES at a time, so that no wide or whole copy of `a`
+    is made in host memory."""
+    flags = a.ndim == 1
+    dt_np = np.uint8 if flags else np.uint16
+    out = torch.empty(a.shape, dtype=torch.uint8 if flags else torch.int16,
+                      device=resolve_device(device))
+    row_bytes = max(1, int(np.prod(a.shape[1:], dtype=np.int64)) * (
+        1 if flags else 2))
+    step = max(1, _UPLOAD_BYTES // row_bytes)
+    for lo in range(0, a.shape[0], step):
+        part = np.array(a[lo:lo + step], dtype=dt_np)
+        out[lo:lo + step].copy_(torch.from_numpy(
+            part if flags else part.view(np.int16)))
+    return out
 
 
 # ------------------------------------------------------------- carry core

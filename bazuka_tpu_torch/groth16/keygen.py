@@ -13,21 +13,29 @@
      multiply (`ops.weierstrass.batch_gen_mul`, 32 complete adds per
      scalar, K6/K7 on the card) in chunks of GEN_CHUNK, each chunk turned
      to affine by one batched Fermat inversion (K1) and written into its
-     query's rows on the device
+     query's rows, on the card or on the host
 
-Query tensors live on the device: G1 queries as ((Np, 2, 24) int32 affine
-Montgomery limbs, (Np,) bool infinity mask), the G2 query as ((Np, 4, 24),
-(Np,)).  Rows past each query's length, and points at infinity, are zero
-limbs with the mask set, as the JAX package writes them.  Singleton points
-are host affine tuples.
+A query is a pair (affine Montgomery limbs, infinity flags): (Np, 2, 24)
+for G1, (Np, 4, 24) for G2, and (Np,).  Rows past each query's length, and
+points at infinity, are zero limbs with the flag set, as the JAX package
+writes them.  Where it lives is the `device_queries` policy of the JAX
+package (`bazuka_tpu/groth16/keygen.py:295-320`): True keeps all five on
+the card, "g1" the four G1 queries (the G2 query on the host), False none;
+by default True up to Np = RESIDENT_ALL_MAX, "g1" up to RESIDENT_G1_MAX,
+False above (the mainnet batch-256 key, Np = 2^24).  A query on the card
+is narrow (int16 limbs, uint8 flags: `fields.limbs.narrow_limbs`), half
+the bytes of the kernels' int32 form, and the prover widens it per MSM; a
+query on the host is uint16/uint8 numpy (a loaded directory key's memory
+maps), which the prover uploads narrow per MSM.  A key built another way
+may hold wide int32 limbs and bool flags on the card; the prover takes
+those as they are.  Singleton points are host affine tuples.
 
 Keys written by either package load in both.  Both layouts (one `.npz`, or
 a directory of narrow `.npy` files with `head.pkl`) pickle their header
 with the JAX package's class names: this package writes its three wire
 classes under those names without importing them, and reads them back with
 an unpickler that maps the names to its own classes and refuses any other
-class.  The JAX package's `backend=` and `device_queries=` options (its
-host-resident big mode) are not ported.
+class.  The JAX package's `backend=` option is not ported.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ import torch
 
 from ..crypto import bls12_381 as bls
 from ..device import resolve_device
-from ..fields.limbs import FP_LIMBS, fp_field, fr_field, to_numpy
+from ..fields.limbs import (FP_LIMBS, fp_field, fr_field, narrow_limbs,
+                            narrow_np, narrow_to_device, to_numpy)
 from ..ops import weierstrass as wst
 from ..ops.msm_lm import msm_pad_len
 from ..zk.proof import G1Wire, G2Wire, Groth16VerifyingKey
@@ -55,6 +64,26 @@ from .sparse import DeviceR1CS, encode_mont
 R = bls.R
 
 GEN_CHUNK = 1 << 16  # fixed-base multiplies per chunk (bounds live memory)
+
+# The default residency of a key's queries by their padded length Np
+# (bazuka_tpu/groth16/keygen.py:311-318): module constants, so that a run
+# at a toy size can lower them.
+RESIDENT_ALL_MAX = 1 << 22
+RESIDENT_G1_MAX = 1 << 23
+
+
+def default_residency(Np: int):
+    """The `device_queries` value for a key of padded length Np."""
+    if Np <= RESIDENT_ALL_MAX:
+        return True
+    return "g1" if Np <= RESIDENT_G1_MAX else False
+
+
+def _resident(device_queries, name: str) -> bool:
+    """Whether query `name` lives on the card under `device_queries`."""
+    if name == "b_g2_query":
+        return device_queries is True
+    return bool(device_queries)
 
 
 def _rng_scalars(seed: bytes, n: int, tag: bytes) -> List[int]:
@@ -119,10 +148,12 @@ def _gen_mul_am(scalars_std, kind: str, out_am=None, out_inf=None):
     """Streamed fixed-base multiply (the port of `_gen_mul_am_host`):
     (M, 16) standard-form scalars -> point-major affine rows.  Each
     GEN_CHUNK batch is multiplied, inverted to affine and written into
-    rows [lo, lo + n) of out_am/out_inf, which stay on the scalars' device
-    (allocated if not given).  The JAX package pads every chunk to a fixed
-    shape for its compiled programs; these kernels take any lane count, so
-    the last chunk runs at its own size.  Returns (out_am, out_inf)."""
+    rows [lo, lo + n) of out_am/out_inf: int32 limbs and bool flags on the
+    scalars' device (allocated if not given), or narrow ones given by the
+    caller, int16/uint8 on the device or uint16/uint8 numpy on the host.
+    The JAX package pads every chunk to a fixed shape for its compiled
+    programs; these kernels take any lane count, so the last chunk runs at
+    its own size.  Returns (out_am, out_inf)."""
     M = int(scalars_std.shape[0])
     dev = scalars_std.device
     if out_am is None:
@@ -134,8 +165,14 @@ def _gen_mul_am(scalars_std, kind: str, out_am=None, out_inf=None):
     for lo in range(0, M, GEN_CHUNK):
         am, inf = to_am(wst.batch_gen_mul(scalars_std[lo:lo + GEN_CHUNK],
                                           kind))
-        out_am[lo:lo + am.shape[0]] = am
-        out_inf[lo:lo + am.shape[0]] = inf
+        hi = lo + am.shape[0]
+        if isinstance(out_am, np.ndarray):
+            out_am[lo:hi] = to_numpy(narrow_limbs(am))
+            out_inf[lo:hi] = inf.cpu().numpy()
+        else:
+            narrow = out_am.dtype == torch.int16
+            out_am[lo:hi] = narrow_limbs(am) if narrow else am
+            out_inf[lo:hi] = inf
     return out_am, out_inf
 
 
@@ -157,12 +194,15 @@ def _decode_g2_am(am, inf) -> List[bls.G2Point]:
 
 
 def generate_parameters(cs, seed: bytes = b"bazuka-tpu-dev", device="cuda",
-                        record: Optional[dict] = None) -> Parameters:
+                        record: Optional[dict] = None,
+                        device_queries=None) -> Parameters:
     """Deterministic Groth16 setup for the circuit recorded in `cs`
     (anything with `compiled()`), equal to the JAX package's
-    `generate_parameters(cs, seed)`.  If `record` is a dict it is filled
-    with per-stage seconds (the card synchronised at each stage boundary)
-    under "seconds"."""
+    `generate_parameters(cs, seed)`.  `device_queries` (True, "g1" or
+    False; None: `default_residency(Np)`) says which queries stay on the
+    card, narrow; the others are written chunk by chunk into host arrays.
+    If `record` is a dict it is filled with per-stage seconds (the card
+    synchronised at each stage boundary) under "seconds"."""
     dev = resolve_device(device)
     sync = record is not None and dev.type == "cuda"
     t_last = [time.perf_counter()]
@@ -223,12 +263,21 @@ def generate_parameters(cs, seed: bytes = b"bazuka-tpu-dev", device="cuda",
     tick("h_scalars_host")
 
     # every query has one padded length, the prover's MSM length; each is
-    # written chunk by chunk into its device tensors (pad rows: infinity)
+    # written chunk by chunk, narrow, where it will live (pad rows:
+    # infinity)
     Np = msm_pad_len(max(num_vars, d - 1))
+    if device_queries is None:
+        device_queries = default_residency(Np)
 
-    def make_query(scalars, n_aff, kind):
-        am = torch.zeros((Np, n_aff, FP_LIMBS), dtype=torch.int32, device=dev)
-        inf = torch.ones((Np,), dtype=torch.bool, device=dev)
+    def make_query(name, scalars):
+        n_aff, kind = (4, "g2") if name == "b_g2_query" else (2, "g1")
+        if _resident(device_queries, name):
+            am = torch.zeros((Np, n_aff, FP_LIMBS), dtype=torch.int16,
+                             device=dev)
+            inf = torch.ones((Np,), dtype=torch.uint8, device=dev)
+        else:
+            am = np.zeros((Np, n_aff, FP_LIMBS), np.uint16)
+            inf = np.ones((Np,), np.uint8)
         _gen_mul_am(scalars, kind, am, inf)
         return (am, inf)
 
@@ -239,20 +288,20 @@ def generate_parameters(cs, seed: bytes = b"bazuka-tpu-dev", device="cuda",
         *_gen_mul_am(head([alpha, beta, delta]), "g1"))
     ic_pts = _decode_g1_am(*_gen_mul_am(ic_std, "g1"))
     tick("g1_head_ic")
-    a_query = make_query(u_std, 2, "g1")
+    a_query = make_query("a_query", u_std)
     tick("a_query")
-    b_g1_query = make_query(v_std, 2, "g1")
+    b_g1_query = make_query("b_g1_query", v_std)
     tick("b_g1_query")
-    l_query = make_query(l_std, 2, "g1")
+    l_query = make_query("l_query", l_std)
     tick("l_query")
-    h_query = make_query(h_std, 2, "g1")
+    h_query = make_query("h_query", h_std)
     del h_std
     tick("h_query")
 
     # G2: [beta, gamma, delta] head + the v tail
     beta_g2, gamma_g2, delta_g2 = _decode_g2_am(
         *_gen_mul_am(head([beta, gamma, delta]), "g2"))
-    b_g2_query = make_query(v_std, 4, "g2")
+    b_g2_query = make_query("b_g2_query", v_std)
     tick("g2_head_b_g2_query")
 
     pk = ProvingKey(
@@ -334,10 +383,14 @@ def _pk_head(params: Parameters) -> dict:
 
 
 def _narrow(query):
-    """(int32 limbs, bool mask) -> (uint16 limbs, uint8 flags) on the host:
-    the JAX package's on-disk form of a key at most 2^22 long."""
+    """A query, wherever it lives -> (uint16 limbs, uint8 flags) on the
+    host: the JAX package's on-disk form."""
     am, inf = query
-    return to_numpy(am).astype(np.uint16), inf.cpu().numpy().astype(np.uint8)
+    if isinstance(am, torch.Tensor):
+        am = to_numpy(narrow_limbs(am))
+    if isinstance(inf, torch.Tensor):
+        inf = inf.cpu().numpy()
+    return narrow_np(am), narrow_np(inf)
 
 
 def save_parameters(params: Parameters, path: str) -> None:
@@ -391,20 +444,16 @@ def _load_head(data: bytes) -> dict:
     return _HeadUnpickler(io.BytesIO(data)).load()
 
 
-def _query_to_device(am, inf, device):
-    """uint16/uint32 affine limbs + 0/1 flags -> (int32 limbs, bool mask)."""
-    am = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(am).astype(np.int32))).to(device)
-    inf = torch.from_numpy(np.asarray(inf) != 0).to(device)
-    return am, inf
-
-
-def params_from_numpy(head: dict, queries: dict, device="cuda") -> Parameters:
+def params_from_numpy(head: dict, queries: dict, device="cuda",
+                      device_queries=None) -> Parameters:
     """Parameters from host data: `head` holds the singleton points
     (alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2), `num_inputs`, and
     `vk` as wire tuples (the fields of Groth16VerifyingKey in order, each
     point as (x, y, infinity)); `queries` maps each query name to its
-    (am, inf) numpy pair, limbs uint16 or uint32."""
+    (am, inf) numpy pair, limbs uint16 or uint32.  `device_queries` as in
+    `generate_parameters` (None: `default_residency(Np)`): the queries it
+    keeps on the card are uploaded narrow, the others stay host arrays,
+    narrowed where they are not (a memory map stays one)."""
     dev = resolve_device(device)
     vk = head["vk"]
     if not isinstance(vk, Groth16VerifyingKey):
@@ -417,7 +466,15 @@ def params_from_numpy(head: dict, queries: dict, device="cuda") -> Parameters:
             G2Wire(tuple(d2[0]), tuple(d2[1]), d2[2]),
             [G1Wire(*p) for p in ic],
         )
-    qs = {name: _query_to_device(*queries[name], dev) for name in _QUERY_NAMES}
+    if device_queries is None:
+        device_queries = default_residency(queries["a_query"][1].shape[0])
+    qs = {}
+    for name in _QUERY_NAMES:
+        am, inf = queries[name]
+        if _resident(device_queries, name):
+            qs[name] = (narrow_to_device(am, dev), narrow_to_device(inf, dev))
+        else:
+            qs[name] = (narrow_np(am), narrow_np(inf))
     pk = ProvingKey(
         alpha_g1=head["alpha_g1"],
         beta_g1=head["beta_g1"],
@@ -430,9 +487,13 @@ def params_from_numpy(head: dict, queries: dict, device="cuda") -> Parameters:
     return Parameters(pk=pk, vk=vk)
 
 
-def load_parameters(path: str, device="cuda") -> Parameters:
-    """Load a key saved by `bazuka_tpu.groth16.keygen.save_parameters`
-    (`*.npz`, or a directory of narrow `.npy` files and `head.pkl`)."""
+def load_parameters(path: str, device="cuda",
+                    device_queries=None) -> Parameters:
+    """Load a key saved by `bazuka_tpu.groth16.keygen.save_parameters` or
+    `save_parameters` (`*.npz`, or a directory of narrow `.npy` files and
+    `head.pkl`), under the residency policy of `params_from_numpy`.  A
+    directory's files are memory-mapped: a query left on the host is read
+    from disk only when the prover uploads it."""
     if path.endswith(".npz"):
         z = np.load(path, allow_pickle=False)
         head = _load_head(z["head"].tobytes())
@@ -450,4 +511,4 @@ def load_parameters(path: str, device="cuda") -> Parameters:
             for suf in ("_am", "_inf")
         }
     queries = {n: (files[n + "_am"], files[n + "_inf"]) for n in _QUERY_NAMES}
-    return params_from_numpy(head, queries, device)
+    return params_from_numpy(head, queries, device, device_queries)

@@ -10,7 +10,8 @@ radix-2 stage loop (`bazuka_tpu/ops/ntt.py`) and the Fermat inversion
 
   mont_mul(F, a, b)    K1 Fr, K1 Fp: the batched multiply
   ntt_stages_(a, tw)   K1 Fr NTT stages: every radix-2 stage of an NTT of
-                       bit-reversed (n, 16) Montgomery limbs, in place
+                       bit-reversed (n, 16) Montgomery limbs, in place,
+                       over the whole array or each row of a batch
   mont_inv(F, a)       K1 Fp inversion: a^(p-2), 0 -> 0, over Fp
 
 Each runs its plain version on a CPU tensor and launches its kernel on a
@@ -137,43 +138,61 @@ def _stages(F, a, tw, lo: int, hi: int, mul=None):
     return a.reshape(B, m, nl)
 
 
-def ntt_stages_plain(a, tw, low_log: int = NTT_LOW_LOG):
-    """The plain version, at the kernel's interface: stages 0..k-1 on each
-    block of 2^k rows (k = min(low_log, log2 n)), then each remaining
-    stage over the whole array.  `a` is (n, 16) bit-reversed Montgomery
-    limbs, `tw` the packed (n - 1, 16) stage twiddles; returns a new
-    tensor.  The kernel's blocks are 2^NTT_LOW_LOG rows; the block size
-    cannot change the result, and a smaller `low_log` lets a test at a toy
-    size run the single stages too."""
+def _row_log(n: int, row: int) -> int:
+    """log2 m for n elements in rows of m (0: one row of n); raises unless
+    m is a power of two that divides n."""
+    m = row or n
+    log_m = m.bit_length() - 1
+    if m < 1 or m != 1 << log_m or n % m:
+        raise ValueError(f"want rows of a power of two dividing {n}, "
+                         f"not {m}")
+    return log_m
+
+
+def ntt_stages_plain(a, tw, low_log: int = NTT_LOW_LOG, row: int = 0):
+    """The plain version, at the kernel's interface: `a` is n / m rows of
+    m bit-reversed Montgomery limbs ((n, 16); `row` = m, 0 for one row of
+    n, a power of two), `tw` the row length's packed (m - 1, 16) stage twiddles; each row
+    is transformed on its own.  Stages 0..k-1 run on each block of 2^k
+    rows (k = min(low_log, log2 m)), then each remaining stage over each
+    row; returns a new tensor.  The kernel's blocks are 2^NTT_LOW_LOG
+    rows; the block size cannot change the result, and a smaller
+    `low_log` lets a test at a toy size run the single stages too."""
     F = fr_field()
     n = a.shape[0]
-    log_n = n.bit_length() - 1
-    if n != 1 << log_n:
-        raise ValueError(f"size {n} is not a power of two")
-    k = min(low_log, log_n)
+    log_m = _row_log(n, row)
+    m = 1 << log_m
+    k = min(low_log, log_m)
     blocks = _stages(F, a.reshape(n >> k, 1 << k, F.n), tw, 0, k)
-    return _stages(F, blocks.reshape(1, n, F.n), tw, k, log_n).reshape(
+    return _stages(F, blocks.reshape(n // m, m, F.n), tw, k, log_m).reshape(
         n, F.n)
 
 
-def ntt_stages_(a, tw):
+def ntt_stages_(a, tw, row: int = 0):
     """Every radix-2 stage of a decimation-in-time NTT over Fr, written
     over `a` ((n, 16) bit-reversed Montgomery limbs, n a power of two) and
-    returned; `tw` is the packed (n - 1, 16) table of stage twiddles.  On
-    the card `a` must be contiguous and 16-byte aligned (`ntt_mont` hands
-    it a fresh gather); the kernel uses one scratch tensor of a's size."""
+    returned; `tw` is the packed (m - 1, 16) table of stage twiddles of
+    the row length m.  With `row` = m < n (a power of two dividing n),
+    `a` holds n / m rows of m elements, each transformed on its own (the
+    four-step NTT's row transforms); 0 means one row of n, which must
+    then be a power of two.  On the card `a` must be
+    contiguous and 16-byte aligned (`ntt_mont` hands it a fresh gather);
+    the kernel uses one scratch tensor of a's size."""
     if _device(a, tw) == "cpu":
-        return a.copy_(ntt_stages_plain(a, tw))
+        return a.copy_(ntt_stages_plain(a, tw, row=row))
     F = fr_field()
     _check_limbs(F, a, tw)
     n = a.shape[0]
-    if a.dim() != 2 or tuple(tw.shape) != (max(n - 1, 0), F.n):
-        raise ValueError("want a (n, 16) and tw (n - 1, 16)")
+    log_m = _row_log(n, row)
+    m = 1 << log_m
+    if a.dim() != 2 or tuple(tw.shape) != (m - 1, F.n):
+        raise ValueError("want a (n, 16) and tw (m - 1, 16)")
     if not a.is_contiguous() or a.data_ptr() % 16:
         raise ValueError("ntt_stages_ works in place on a contiguous, "
                          "16-byte-aligned tensor")
-    if n > 1:
-        K_NTT.launch((a, torch.empty_like(a), _aligned(tw)), n)
+    if m > 1:
+        K_NTT.launch((a, torch.empty_like(a), _aligned(tw)), n,
+                     0 if m == n else m)
     return a
 
 

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from ..crypto import bls12_381 as bls
-from ..fields.limbs import fp_field, fr_field, to_torch
+from ..fields.limbs import (fp_field, fr_field, to_torch, widen_flags,
+                            widen_limbs)
 from . import curve_kernels as ck
 from . import weierstrass as wst
 
@@ -370,7 +371,9 @@ def make_dedup_plan(s_np: np.ndarray, threshold: int = 8) -> _DedupPlan:
 
 
 def _presum(P_am, inf, plan: _DedupPlan, kind: str):
-    """Projective sums (n_proj, 24, V) of each heavy group's points."""
+    """Projective sums (n_proj, 24, V) of each heavy group's points.
+    P_am and inf may be narrow (int16 limbs, uint8 flags): only the rows
+    each round gathers are widened."""
     dev = P_am.device
     madd = ck.madd_select_lm if kind == "g1" else ck.madd_select_g2_lm
     addsel = ck.add_select_lm if kind == "g1" else ck.add_select_g2_lm
@@ -382,8 +385,9 @@ def _presum(P_am, inf, plan: _DedupPlan, kind: str):
     for r in range(plan.m):
         # per-round indirect gather of (Ks, n_aff, 24) rows
         gpos = gidx[torch.clamp(run_start + r, 0, plan.Hp - 1)]
-        valid = (r < run_len) & ~inf[gpos]
-        acc = madd(acc, P_am[gpos].permute(1, 2, 0).contiguous(), valid)
+        valid = (r < run_len) & ~widen_flags(inf[gpos])
+        acc = madd(acc, widen_limbs(P_am[gpos]).permute(1, 2, 0).contiguous(),
+                   valid)
     lane = torch.arange(plan.Ks, device=dev)
     fold = torch.from_numpy(plan.fold_masks).to(dev)
     for k in range(fold.shape[0]):
@@ -393,14 +397,16 @@ def _presum(P_am, inf, plan: _DedupPlan, kind: str):
 
 
 def presum_g1(P_am, inf, plan: _DedupPlan):
-    """Sum each heavy group's points.  Returns ((V, 2, 24) affine sums,
-    (V,) inf mask) aligned with plan.heavy_scalars."""
+    """Sum each heavy group's points, over a wide or a narrow query.
+    Returns ((V, 2, 24) affine sums, (V,) inf mask) aligned with
+    plan.heavy_scalars."""
     s = _presum(P_am, inf, plan, "g1")
     return wst.g1_proj_to_am((s[0].T, s[1].T, s[2].T))
 
 
 def presum_g2_am(P_am, inf, plan: _DedupPlan):
-    """G2 analog of presum_g1 over the (N, 4, 24) affine layout."""
+    """G2 analog of presum_g1 over the (N, 4, 24) affine layout, wide or
+    narrow (the big-mode G2 MSM's, `prove._g2_msm_big`)."""
     s = _presum(P_am, inf, plan, "g2")
     return wst.g2_proj_to_am(
         ((s[0].T, s[1].T), (s[2].T, s[3].T), (s[4].T, s[5].T)))
@@ -427,8 +433,18 @@ def _combine(kind: str, wins, c: int):
     return acc
 
 
+def take_scalars(scalars):
+    """The scalars an MSM is handed: a tensor that the caller keeps, or a
+    one-element list that the MSM empties, so that the caller's reference
+    is gone while the MSM runs (the JAX package's MSMs take theirs by
+    donation, `pallas_msm.py:1316`)."""
+    return scalars.pop() if isinstance(scalars, list) else scalars
+
+
 def _msm(kind, P_am, inf, scalars_std, c, nbits, chunk, dedup_plan):
     add = bls.g1_add if kind == "g1" else bls.g2_add
+    inf = widen_flags(inf)
+    scalars_std = take_scalars(scalars_std)
     if dedup_plan is not None and dedup_plan.active:
         # Σ s_i·P_i = Σ_{light} s_i·P_i + Σ_{heavy vals v} v·(Σ_{group} P_i)
         plan = dedup_plan
@@ -441,8 +457,12 @@ def _msm(kind, P_am, inf, scalars_std, c, nbits, chunk, dedup_plan):
         extra = _msm(kind, sum_am, sum_inf, to_torch(plan.heavy_scalars, dev),
                      4 if V < (1 << 12) else 8, nbits, chunk, None)
         del sum_am, sum_inf
+        # the heavy rows zeroed in a copy; this frame then drops its
+        # reference to the scalars (pallas_msm.py:1404), so scalars
+        # handed over in a list are freed here, before the drain
         scal = scalars_std.clone()
         scal[torch.from_numpy(plan.hpos).to(dev)] = 0
+        del scalars_std
         main = _msm(kind, P_am, inf, scal, c, nbits, chunk, None)
         return add(main, extra)
     wins = _msm_v3(P_am, inf, scalars_std, c, nbits, chunk, kind)
@@ -451,16 +471,20 @@ def _msm(kind, P_am, inf, scalars_std, c, nbits, chunk, dedup_plan):
 
 def msm_lm(P_am, inf, scalars_std, c: int = 12, nbits: int = 255,
            chunk: int = 1 << 18, dedup_plan: Optional[_DedupPlan] = None):
-    """G1 MSM: point-major affine points ((N, 2, 24) + (N,) bool infinity
-    mask) x (N, 16) standard Fr limbs -> host affine point (or None).
-    Pass dedup_plan for duplicate-heavy scalar vectors (witnesses)."""
+    """G1 MSM: point-major affine points ((N, 2, 24) int32 + (N,)
+    infinity flags, bool or uint8) x (N, 16) standard Fr limbs -> host
+    affine point (or None).  The scalars may be handed over in a
+    one-element list (`take_scalars`).  Pass dedup_plan for
+    duplicate-heavy scalar vectors (witnesses); its presum also takes
+    narrow (int16) points."""
     return _msm("g1", P_am, inf, scalars_std, c, nbits, chunk, dedup_plan)
 
 
 def msm_lm_g2(P_am, inf, scalars_std, c: int = 12, nbits: int = 255,
               chunk: int = 1 << 18, dedup_plan: Optional[_DedupPlan] = None):
     """G2 MSM: (N, 4, 24) point-major affine + (N,) bool infinity mask x
-    (N, 16) standard Fr limbs -> host affine G2 point (or None)."""
+    (N, 16) standard Fr limbs (or a list of them, as for msm_lm) -> host
+    affine G2 point (or None)."""
     return _msm("g2", P_am, inf, scalars_std, c, nbits, chunk, dedup_plan)
 
 

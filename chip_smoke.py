@@ -4,8 +4,10 @@ check it.
 
     python3 chip_smoke.py              # d = Np = 2^22 (the default)
     python3 chip_smoke.py --log-d 20   # smaller synthetic proof and key,
-                                       # an MPN batch of 4 transfers, and
-                                       # smaller phases 7-8
+                                       # MPN batches of 4 transfers (the
+                                       # mainnet one with the big-mode
+                                       # thresholds lowered), and smaller
+                                       # phases 7-8
 
 Phases, each printed as one JSON line:
   1. device   card name and power limit (nvidia-smi), torch and CUDA versions
@@ -45,28 +47,48 @@ Phases, each printed as one JSON line:
               on G1 and one on G2 under torch.profiler (`gen_mul_profile`
               lines: device time by kernel, the rest by PyTorch kernel
               name, idle share)
-  6. mpn      the MPN update proof, the system's real workload, on the port's
+  6. mpn      MPN update proofs, the system's real workload, on the port's
               own host copies of the MPN state tree, witness generators and
-              circuits: 64 users (seeds b"U0".."U63") each deposit 1,000 of
-              token 123 into a fresh MpnConfig(15, 1, 3, 3, 3, 0xBEEF) state,
-              then user i pays user i + 1 (mod 64) 100 with a fee of 7
-              (`witness_gen`); the update circuit of that batch is
-              synthesised (`synthesis`: 3,275,554 constraints, 3,266,407
-              variables, both pinned) and checked on the host
-              (`satisfied_check`); its public inputs equal the JAX
-              package's (pinned below).  Then its key on the card (seed
-              b"mpn-update-b64"; K6, K7, K1's multiplies and its Fp
-              inversion must each have run), two proofs under it (r, s =
-              7, 11, which pays the NTT tables if they are cold, then 8,
-              12; K1's four entries and K2-K5 must each have run in the
-              first), each accepted by groth16_verify for the public inputs
-              and rejected with next_state + 1, with stage seconds, the
-              device's peaks and the host's peak RSS; then `msm_a` and
-              `msm_b_g2` of this witness under torch.profiler
-              (`drain_profile` lines with "cell": "mpn"; `msm_a` also
-              read the earlier way: the same trace's parsed event tree,
-              and a profile of the CPU and CUDA activities)
-  7. poseidon the batched Poseidon of `ops/poseidon.py` on the card (every
+              circuits, in two cells (`cell`), each with its host half in a
+              worker process of its own started before phase 2: the witness
+              and synthesis beside phases 2-5 and 7, the satisfaction check
+              beside the cell's key (the host's MemTotal and the worker's
+              peak RSS are printed).  First `mpn_b64`, the batch of 64
+              transfers at d = Np = 2^22 in the prover's normal mode
+              (3,275,554 constraints, 3,266,407 variables and the public
+              inputs pinned to the JAX package's): its key on the card
+              (seed b"mpn-update-b64", every query narrow on the card) and
+              two proofs under it (7, 11 and 8, 12), each verified and
+              rejected with next_state + 1, and the same profiles as
+              below.  Then `mpn_b256`, the mainnet proof (the batch-256
+              update circuit, d = Np = 2^24): 256 users (seeds
+              b"U0".."U255") each deposit 1,000 of token 123 into a fresh
+              MpnConfig(15, 1, 4, 4, 4, 0xBEEF) state, then user i pays
+              user i + 1 (mod 256) 100 with a fee of 7 (`witness_gen`);
+              the update circuit of that batch is synthesised
+              (`synthesis`: 13,101,154 constraints, 13,064,551 variables,
+              both pinned) and checked on the host (`satisfied_check`);
+              its public inputs equal the JAX package's (pinned below).
+              Then its key
+              on the card (seed b"mpn-update-b256") under the default
+              residency, the queries on the host at Np = 2^24 (K6, K7, K1's
+              multiplies and its Fp inversion must each have run); saved
+              in the directory layout to a temporary directory (seconds,
+              bytes on disk) and loaded back memory-mapped, head and VK
+              equal to the generated key's; a proof under the loaded key
+              (r, s = 7, 11; host-resident, big mode: the four-step NTT,
+              the narrow uploads and the half-split G2 MSM; K1's four
+              entries, the four-step's row stages and K2-K5 must each have
+              run), then one under the same directory loaded with every
+              query narrow on the card (8, 12), each accepted by
+              groth16_verify for the public inputs and rejected with
+              next_state + 1, with stage and upload seconds, the device's
+              peaks and the host's peak RSS; then the h phase
+              (`h_profile`) and `msm_a` and the half-split `msm_b_g2`
+              (`drain_profile`) of this witness under torch.profiler,
+              "cell": "mpn_b256"; the directory is deleted
+  7. poseidon (run before phase 6, while its worker finishes)
+              the batched Poseidon of `ops/poseidon.py` on the card (every
               multiply a launch of K1 Fr, which must have run), at stress
               sizes (no caller hashes batches on the card yet): the 16
               golden vectors (arity 1-16); a dense 4-ary tree of 4^9
@@ -81,11 +103,11 @@ Phases, each printed as one JSON line:
               IMAD rate, peaks, K1's launch sizes; then the batch under
               torch.profiler (`poseidon_profile`)
   8. eddsa    JubJub EdDSA of `ops/jubjub_batch.py` on the card (K1 Fr
-              must have run): the signatures of phase 6's transfers in one
-              `batch_eddsa_verify` call, all valid; one mainnet block of
-              256 MPN transfers (users b"U0".."U255") in one call, all
-              valid: seconds per block and verifies/s beside the bound,
-              the headline; then a stress size, 4,096 keys and signatures
+              must have run): one mainnet block, phase 6's 256 MPN
+              transfers (users b"U0".."U255"), in one `batch_eddsa_verify`
+              call, all valid: seconds per block and verifies/s beside the
+              bound, the headline; then a stress size, 4,096 keys and
+              signatures
               made on the host (seeds b"E0".., in four worker processes),
               every 8th row tampered with in turn (message + 1, s + 1,
               another signer's key, R moved along the curve, R off the
@@ -99,10 +121,14 @@ Phases, each printed as one JSON line:
               every tampered row and 256 random valid ones, and the
               products to the host point_mul on the four edge rows and
               256 random ones; peak, K1's launch sizes.  Below
-              --log-d 22 phases 7 and 8 run at 4^6 leaves, 2^16 batch
-              hashes and 256 signatures
+              --log-d 22 both cells of phase 6 prove 4 transfers (d =
+              2^18), `mpn_b256` with BIG_DOMAIN, the four-step's threshold
+              and chunk and the residency thresholds lowered (each
+              printed), so that the mainnet path runs, and phases 7 and 8
+              run at 4^6 leaves, 2^16 batch hashes and 256 signatures
   9. kernel   each kernel replayed at every size phases 4-8 launched it
-              with, on fresh random operands (plus the edge cases: 0 and
+              with (the NTT's stages also over rows of 2^11 and 2^12 of
+              2^23 and 2^24 elements), on fresh random operands (plus the edge cases: 0 and
               p − 1 among K1's operands and the NTT's inputs, R − 1 in one
               of K1's operands against a canonical other, 0, 1 and
               p − 1 among the inversion's; for the curve adds K2-K7 also
@@ -113,12 +139,13 @@ Phases, each printed as one JSON line:
               time and the card's bound, per size and averaged over the
               phases' launches
 Then the `mpn_launch_weighted` line (the replayed times weighted by the
-MPN key's and first proof's launches), the `launch_weighted` line (K1 Fr
+mainnet key's and first proof's launches), the `launch_weighted` line (K1 Fr
 weighted by phase 7's and phase 8's launches), the `{"kernels": [...]}`
 line
 (launch counts of the phases that ran each kernel, by phase and in all,
 times averaged over their launches) and the last line
-`{"ok": true, "device": {...}}`.  Any failed check raises, so the script
+`{"ok": true, "device": {...}}`, after a `timeline` line of each phase's
+seconds.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits with
 code 2.
 """
@@ -126,13 +153,16 @@ code 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import multiprocessing
 import os
 import resource
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -214,17 +244,27 @@ TOY_PROOF_HEX = (
 # seeds the synthetic circuit, its key and the evaluation point ρ
 ROOT_SEED = 22
 
-# The MPN update proof at batch 64 (phase 6): MpnConfig(15, 1, 3, 3, 3,
-# 0xBEEF), 64 users, deposits of 1,000 of token 123, then transfers of 100
-# with a fee of 7 in the same token; the prover's commitment is that of
-# TxBuilder(b"WORKER") at reward 10.  Its circuit has 3,275,554 constraints
-# and 3,266,407 variables (d = 2^22).
-MPN_LOG4_TREE, MPN_LOG4_TOKEN_TREE, MPN_LOG4_BATCH = 15, 1, 3
+# The mainnet MPN update proof (phase 6's `mpn_b256` cell): the batch of
+# 256 transfers (bazuka_tpu/config/blockchain.py:
+# MPN_LOG4_UPDATE_BATCH_SIZE = 4) at MpnConfig(15, 1, 4, 4, 4, 0xBEEF),
+# 256 users, deposits of 1,000 of token 123, then transfers of 100 with a
+# fee of 7 in the same token; the prover's commitment is that of
+# TxBuilder(b"WORKER") at reward 10.  Its circuit has 13,101,154
+# constraints and 13,064,551 variables (d = 2^24), as the JAX package
+# gives them (PERFORMANCE.md:163).
+MPN_LOG4_TREE, MPN_LOG4_TOKEN_TREE, MPN_LOG4_BATCH = 15, 1, 4
 MPN_CID, MPN_TOKEN = ContractId(0xBEEF), ContractId(123)
+MPN_B256_CONSTRAINTS = 13_101_154
+MPN_B256_VARS = 13_064_551
+MPN_KEY_SEED = b"mpn-update-b256"
+# The same batch of 64 transfers (the `mpn_b64` cell, log4_batch 3, d =
+# 2^22, the prover's normal mode): 3,275,554 constraints (also the
+# synthetic cell's size) and 3,266,407 variables.
+MPN_B64_LOG4_BATCH = 3
 MPN_B64_CONSTRAINTS = 3_275_554
 MPN_B64_VARS = 3_266_407
-MPN_KEY_SEED = b"mpn-update-b64"
-# [commitment, height, state, aux_data, next_state] of that batch from the
+MPN_B64_KEY_SEED = b"mpn-update-b64"
+# [commitment, height, state, aux_data, next_state] of each batch from the
 # JAX package's witness generators; tests/test_torch_mpn_circuits.py holds
 # these constants against a live JAX run.
 MPN_B64_PUBLIC_INPUTS = (
@@ -234,6 +274,32 @@ MPN_B64_PUBLIC_INPUTS = (
     11005667598277283744753787204972477415047986931984279515100439540866077439515,
     8327045856812542320615866613050291403712736401878003321554717267399609843706,
 )
+MPN_B256_PUBLIC_INPUTS = (
+    425793916294024866280688143094958353768386253943388615763977799487240200991,
+    0,
+    47854149401799016754183620629910736396196117106815656404314820227406456579629,
+    2758243653281587398302229622205262935509536358022681555643839507108148284913,
+    18901024506065832730375330085225562898243194160268116602994339232885748973027,
+)
+# Phase 6's cells: log4_batch, pinned constraints, variables and public
+# inputs, key seed, and whether it is the mainnet cell (its proofs in big
+# mode, its key saved, reloaded and proven under again with every query on
+# the card).  `mpn_b64` runs first.
+MPN_CELLS = {
+    "mpn_b64": (MPN_B64_LOG4_BATCH, MPN_B64_CONSTRAINTS, MPN_B64_VARS,
+                MPN_B64_PUBLIC_INPUTS, MPN_B64_KEY_SEED, False),
+    "mpn_b256": (MPN_LOG4_BATCH, MPN_B256_CONSTRAINTS, MPN_B256_VARS,
+                 MPN_B256_PUBLIC_INPUTS, MPN_KEY_SEED, True),
+}
+# Below --log-d 22 both cells prove 4 transfers (d = 2^18): `mpn_b64` in
+# normal mode, then `mpn_b256` with these thresholds lowered, on the
+# mainnet cell's path: big mode, the four-step NTT over several chunks,
+# every query on the host.
+SMALL_BIG_MODE = {"prove.BIG_DOMAIN": 1 << 18,
+                  "ntt._FOURSTEP_MIN_LOG_N": 18,
+                  "ntt._FOURSTEP_CHUNK_LANES": 1 << 16,
+                  "keygen.RESIDENT_ALL_MAX": 1 << 16,
+                  "keygen.RESIDENT_G1_MAX": 1 << 17}
 
 # Phase 7 (poseidon): poseidon([0..arity-1]) for arity 1..16, the
 # reference's golden vectors (src/zk/poseidon/mod.rs:115-149);
@@ -264,14 +330,11 @@ POSEIDON_GOLDEN = (
 # product alone holds three 1.68 GB tensors); below --log-d 22, 4^6 and
 # 2^16.
 POSEIDON_LOG4_LEAVES, POSEIDON_LOG2_BATCH = 9, 20
-# Phase 8 (eddsa).  The traffic: one mainnet block, 256 MPN transfers
-# (bazuka_tpu/config/blockchain.py: MPN_LOG4_UPDATE_BATCH_SIZE = 4), whose
-# signatures a validator checks (core/transaction.py:
-# MpnTransaction.verify_signature); users b"U0".."U255", user i paying user
-# i + 1 (mod 256) as in phase 6.  Then a stress size, not traffic: 4,096
+# Phase 8 (eddsa).  The traffic: one mainnet block, phase 6's 256 MPN
+# transfers, whose signatures a validator checks (core/transaction.py:
+# MpnTransaction.verify_signature).  Then a stress size, not traffic: 4,096
 # signatures (16 blocks) in one call, 256 below --log-d 22.  Row i is
 # signed by the key of seed b"E%d" % i over the message EDDSA_MSG0 + i.
-MPN_BLOCK_TRANSFERS = 4 ** 4
 EDDSA_SIGS = 4096
 EDDSA_MSG0 = 10 ** 6
 # how every 8th row of the batch is tampered, in turn
@@ -305,11 +368,13 @@ def mont_sqr_imads(n_limbs: int) -> int:
     return s * (s + 1) + 2 * s * s + s
 
 
-def ntt_imads(n: int) -> int:
-    """32-bit multiply-adds of the radix-2 stages of an n-point NTT over
-    Fr: one multiply per butterfly, less those whose twiddle is 1 (the
-    first of each group, n - 1 in all)."""
-    return (n // 2 * (n.bit_length() - 1) - (n - 1)) * mont_mul_imads(16)
+def ntt_imads(n: int, m: int = 0) -> int:
+    """32-bit multiply-adds of the radix-2 stages of NTTs over Fr of rows
+    of m (0: one row of n) of n elements: one multiply per butterfly, less
+    those whose twiddle is 1 (the first of each group, m - 1 a row)."""
+    m = m or n
+    return n // m * (m // 2 * (m.bit_length() - 1) - (m - 1)) * \
+        mont_mul_imads(16)
 
 
 def mont_redc_imads(n_limbs: int) -> int:
@@ -869,6 +934,9 @@ FULL_ADD_NAMES = tuple(k[0].name for k in FULL_ADD_KERNELS)
 # one less (K6's replay time at these two was bimodal on its first port)
 FULL_ADD_ALWAYS = (keygen.GEN_CHUNK - 1, keygen.GEN_CHUNK)
 K1_NAMES = (fk.K_FR.name, fk.K_FP.name, fk.K_NTT.name, fk.K_INV.name)
+# (elements, row length) at which K1's stage entry is always replayed: the
+# four-step's row transforms over a whole 2^23 and 2^24 array
+NTT_ROWS_ALWAYS = ((1 << 23, 1 << 11), (1 << 24, 1 << 12))
 # the kernels each driven path must have launched (keygen runs no NTT)
 PROOF_KERNELS = K1_NAMES + tuple(k[0].name for group in CURVE_KERNELS.values()
                                  for k in group)
@@ -904,15 +972,39 @@ def k1_operands(F, n: int, b_rows: int, gen, device):
     return a.view(n // b_rows, b_rows, F.n), b
 
 
-def ntt_operands(n: int, gen, device):
-    """Random canonical Fr limbs for the NTT's stages at size n, with 0 and
-    p − 1 among them, and the forward transform's packed twiddles."""
+# The plain K1 multiply's int64 arithmetic needs about 100 times its
+# operands' bytes, so the replay holds a larger launch to it in slices.
+PLAIN_SLICE = 1 << 22
+
+
+def mont_mul_plain_sliced(F, a, b):
+    """K1's plain version on `k1_operands`' (m, b_rows, limbs) a against
+    (b_rows, limbs) b, at most PLAIN_SLICE elements at a time (the same
+    elementwise products)."""
+    m, rows = a.shape[0], a.shape[1]
+    if m * rows <= PLAIN_SLICE:
+        return fk.mont_mul_plain(F, a, b)
+    if rows <= PLAIN_SLICE:
+        step = PLAIN_SLICE // rows
+        return torch.cat([fk.mont_mul_plain(F, a[i:i + step], b)
+                          for i in range(0, m, step)])
+    return torch.cat([torch.cat([
+        fk.mont_mul_plain(F, a[i:i + 1, j:j + PLAIN_SLICE],
+                          b[j:j + PLAIN_SLICE])
+        for j in range(0, rows, PLAIN_SLICE)], dim=1) for i in range(m)])
+
+
+def ntt_operands(n: int, gen, device, m: int = 0):
+    """Random canonical Fr limbs for the NTT's stages at size n in rows of
+    m (0: one row of n), with 0 and p − 1 among them, and the forward
+    transform's packed twiddles of the row length."""
+    m = m or n
     F = fr_field()
     x = random_field_limbs(F, n, gen, device)
     x[0] = 0
     x[-1] = to_torch(int_to_limbs(F.p - 1, F.n), device)
-    log_n = n.bit_length() - 1
-    return x, ntt_mod._stage_twiddles(log_n, False, str(device))
+    log_m = m.bit_length() - 1
+    return x, ntt_mod._stage_twiddles(log_m, False, str(device))
 
 
 def inv_operands(n: int, gen, device):
@@ -981,27 +1073,34 @@ def kernel_phase(sizes: dict, device):
             per.append(check_kernel(
                 kern.name, (n, b_rows), count,
                 lambda: fk.mont_mul(F, a, b),
-                lambda: fk.mont_mul_plain(F, a, b),
+                lambda: mont_mul_plain_sliced(F, a, b),
                 (2 * n + b_rows) * F.n * 4, n * mont_mul_imads(F.n)))
+            del a, b
         rows[kern.name] = summarize(per)
 
     F = fr_field()
     per = []
-    for (n, _), count in sorted(sizes[fk.K_NTT.name].items()):
-        x, tw = ntt_operands(n, gen, device)
+    # the four-step's row stages at 2^23 and 2^24 elements, whatever the
+    # run's sizes; a size no phase launched weighs nothing in the averages
+    replay = {size: 0 for size in NTT_ROWS_ALWAYS}
+    replay.update(sizes[fk.K_NTT.name])
+    for (n, row), count in sorted(replay.items()):
+        m = row or n
+        x, tw = ntt_operands(n, gen, device, m)
         work = x.clone()
-        passes = 1 + max(n.bit_length() - 1 - fk.NTT_LOW_LOG, 0)
+        passes = 1 + max(m.bit_length() - 1 - fk.NTT_LOW_LOG, 0)
         row_bytes = F.n * 4
         per.append(check_kernel(
-            fk.K_NTT.name, (n,), count,
-            lambda: fk.ntt_stages_(x.clone(), tw),
-            lambda: fk.ntt_stages_plain(x, tw),
-            (3 * n - 1) * row_bytes, ntt_imads(n), reps=5,
-            timed=lambda: fk.ntt_stages_(work, tw),
+            fk.K_NTT.name, (n, row), count,
+            lambda: fk.ntt_stages_(x.clone(), tw, row=row),
+            lambda: fk.ntt_stages_plain(x, tw, row=row),
+            (2 * n + m - 1) * row_bytes, ntt_imads(n, m), reps=5,
+            timed=lambda: fk.ntt_stages_(work, tw, row=row),
             # a diagnostic, not a bound of the function: the bytes of the
             # kernel's own passes, each reading and writing every row
             extra={"passes": passes, "diag_passes_bytes_ms": bound(
-                (2 * passes * n + n - 1) * row_bytes, 0)[0]}))
+                (2 * passes * n + m - 1) * row_bytes, 0)[0]}))
+        del x, tw, work
     rows[fk.K_NTT.name] = summarize(per)
 
     F = fp_field()
@@ -1345,30 +1444,43 @@ def _witness(params, cs, device):
     return z_np, to_torch(z_np, device)
 
 
-def drain_profile(params, cs, device, cell="synthetic"):
+def drain_profile(params, cs, device, cell="synthetic", witness=None):
     """`msm_a` and `msm_b_g2` of the proof once more, each through
     `profiled_run`: device time by kernel (K2-K5, K1, the rest) and idle
-    share; in the MPN cell `msm_a` also read the earlier way
-    (`crosscheck`)."""
+    share; in the synthetic cell `msm_a` also read the earlier way
+    (`crosscheck`).  A query on the host is uploaded first, outside the
+    timed calls; in big mode `msm_b_g2` is the half-split G2 MSM over the
+    narrow query (`prove._g2_msm_big`), as in the proof."""
     pk = params.pk
-    z_np, z_std = _witness(params, cs, device)
+    z_np, z_std = witness or _witness(params, cs, device)
     plan = msm_lm.make_dedup_plan(z_np)
-    c = prove._msm_c(pk.a_query[0].shape[0])
-    for stage, query, run in (("msm_a", pk.a_query, msm_lm.msm_lm),
-                              ("msm_b_g2", pk.b_g2_query, msm_lm.msm_lm_g2)):
+    Np = pk.a_query[0].shape[0]
+    c = prove._msm_c(Np)
+    d = qap.domain_size(cs.n_constraints, cs.compiled().num_inputs)
+    a_q = prove._consume(prove._put(pk.a_query, device))
+    g2_q = prove._put(pk.b_g2_query, device)
+    if d >= prove.BIG_DOMAIN:
+        def g2():
+            return prove._g2_msm_big(g2_q, z_std, plan, c, 1 << 17)
+    else:
+        g2_q = prove._consume(g2_q)
+
+        def g2():
+            return msm_lm.msm_lm_g2(*g2_q, z_std, c=c, dedup_plan=plan)
+    for stage, run in (("msm_a", lambda: msm_lm.msm_lm(
+            *a_q, z_std, c=c, dedup_plan=plan)), ("msm_b_g2", g2)):
         emit({"phase": "drain_profile", "cell": cell, "stage": stage,
-              **profiled_run(lambda: run(query[0], query[1], z_std, c=c,
-                                         dedup_plan=plan),
-                             crosscheck=cell == "mpn" and stage == "msm_a")})
+              **profiled_run(run, crosscheck=cell == "synthetic"
+                             and stage == "msm_a")})
 
 
-def h_profile(params, cs, d, device):
+def h_profile(params, cs, d, device, cell="synthetic", witness=None):
     """The proof's h phase (`compute_h_mont`: 7 NTTs and the pointwise
     products) once more on the proof's row evaluations, without the
     dedup-plan thread that runs beside it in the proof: first with the NTT
     tables dropped, so that it builds them as the proof's first h phase
     does (`cold_tables_s`), then through `profiled_run`."""
-    z_mont = fr_field().to_mont(_witness(params, cs, device)[1])
+    z_mont = fr_field().to_mont((witness or _witness(params, cs, device))[1])
     dr = params.dev_r1cs
 
     def evs():
@@ -1378,15 +1490,15 @@ def h_profile(params, cs, d, device):
     def h(e):
         return prove.compute_h_mont(e, d)
 
-    ntt_mod._stage_twiddles.cache_clear()
-    ntt_mod._coset_scale.cache_clear()
+    ntt_mod.clear_table_cache()
     args = evs()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     h(*args)
+    del args
     torch.cuda.synchronize()
-    emit({"phase": "h_profile", "cold_tables_s": time.perf_counter() - t0,
-          **profiled_run(h, evs)})
+    emit({"phase": "h_profile", "cell": cell, "d": d,
+          "cold_tables_s": time.perf_counter() - t0, **profiled_run(h, evs)})
 
 
 def gen_mul_profile(device):
@@ -1541,86 +1653,246 @@ def counted(run):
     return out, (_cuda.counts(), _cuda.sizes())
 
 
-def mpn_phase(log4_batch: int, device):
-    """Phase 6: the MPN update batch from its witness to two verified
-    proofs.  Returns ({"keygen", "proof", "proof_2": (launch counts,
-    sizes)}, the batch's signed transfers)."""
-    full = log4_batch == MPN_LOG4_BATCH
+def mem_total() -> int:
+    """The host's MemTotal in bytes (/proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+# The worker's result, kept there until `mpn_host_send` is called, and
+# its circuit, kept for its satisfaction check
+_HOST_CS = {}
+
+
+def mpn_host(log4_batch: int) -> None:
+    """Phase 6's host half, in a worker process: the batch's witness and
+    its circuit synthesised, kept in the worker for `mpn_host_send` and
+    `mpn_host_check`: the circuit, the public inputs, the transfers and
+    the stage seconds, with the host's MemTotal (read before synthesis)
+    and this process's peak RSS."""
+    torch.set_num_threads(1)
     t0 = time.perf_counter()
     circuit, inputs, txs = mpn_update_batch(log4_batch=log4_batch)
     witness_s = time.perf_counter() - t0
+    total = mem_total()
     t1 = time.perf_counter()
-    cs = synthesize_circuit(circuit)
+    cs = _HOST_CS["cs"] = synthesize_circuit(circuit)
     synthesis_s = time.perf_counter() - t1
-    t2 = time.perf_counter()
+    _HOST_CS["out"] = {"cs": cs, "inputs": inputs, "txs": txs,
+            "transfers": len(circuit.transitions),
+            "enabled": sum(t.enabled for t in circuit.transitions),
+            "no_cryptography_module": "cryptography" not in sys.modules,
+            "witness_gen_s": witness_s, "synthesis_s": synthesis_s,
+            "mem_total": total, "host_peak_rss": host_peak_rss(),
+            "done_at": time.time()}
+
+
+def mpn_host_send() -> dict:
+    """`mpn_host`'s result, sent when the main process asks for it: its
+    unpickling there holds the main process's GIL for seconds (tens at
+    256 transfers), which would stall whatever phase it lands in."""
+    return _HOST_CS.pop("out")
+
+
+def mpn_worker(pool, log4_batch: int):
+    """Start `mpn_host` in `pool` (one process); returns (host, check):
+    `host()` waits for the circuit, then has it sent (`worker_wait_s`,
+    `transfer_s`) and queues the satisfaction check, which `check()` waits
+    for before it ends the worker."""
+    built = pool.apply_async(mpn_host, (log4_batch,))
+    pending = {}
+
+    def host():
+        t0 = time.perf_counter()
+        built.get()  # the worker's own error surfaces here
+        t1 = time.perf_counter()
+        sent = pool.apply_async(mpn_host_send)
+        pending["check"] = pool.apply_async(mpn_host_check)
+        out = sent.get()
+        return {**out, "worker_wait_s": t1 - t0,
+                "transfer_s": time.perf_counter() - t1}
+
+    def check():
+        out = pending.pop("check").get()
+        pool.terminate()  # the worker's memory goes back to the host now
+        return out
+
+    return host, check
+
+
+def mpn_host_check() -> dict:
+    """The satisfaction check of `mpn_host`'s circuit, in the same worker
+    after it, while the card makes the key."""
+    cs = _HOST_CS.pop("cs")
+    t0 = time.perf_counter()
     unsatisfied = cs.is_satisfied()
-    satisfied_s = time.perf_counter() - t2
+    return {"satisfied": unsatisfied is None,
+            "satisfied_check_s": time.perf_counter() - t0,
+            "host_peak_rss": host_peak_rss()}
+
+
+def lower_for_small_run() -> dict:
+    """Set SMALL_BIG_MODE's thresholds (big mode, the four-step, host
+    residency) for a phase 6 at 4 transfers; returns them."""
+    mods = {"prove": prove, "ntt": ntt_mod, "keygen": keygen}
+    for name, value in SMALL_BIG_MODE.items():
+        mod, attr = name.split(".")
+        setattr(mods[mod], attr, value)
+    return dict(SMALL_BIG_MODE)
+
+
+def key_dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def fourstep_launches(sizes: dict) -> int:
+    """Launches of the NTT's stage entry over rows (the four-step's)."""
+    return sum(c for (_, row), c in sizes[fk.K_NTT.name].items() if row)
+
+
+def mpn_key_reload(params, on_host, path: str, device, cell: str):
+    """The key saved in the directory layout at `path` and loaded back
+    memory-mapped under the default residency: head and VK equal to
+    `params`'s, its host queries memory maps.  Returns the loaded key."""
+    t0 = time.perf_counter()
+    keygen.save_parameters(params, path)
+    save_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    loaded = keygen.load_parameters(path, device=device)
+    load_s = time.perf_counter() - t1
+    key_checks = {
+        "head_equal": keygen._pk_head(loaded) == keygen._pk_head(params),
+        "vk_bytes_equal": ser.dumps(loaded.vk) == ser.dumps(params.vk),
+        "host_queries_memory_mapped": all(
+            isinstance(getattr(loaded.pk, n)[0], np.memmap)
+            for n in on_host)}
+    loaded.dev_r1cs = params.dev_r1cs
+    emit({"phase": "mpn_key_save", "cell": cell, "save_s": save_s,
+          "bytes_on_disk": key_dir_bytes(path), "load_s": load_s,
+          **key_checks})
+    if not all(key_checks.values()):
+        raise SystemExit(f"MPN key did not load back: {key_checks}")
+    return loaded
+
+
+def mpn_phase(cell: str, host, check, log4_batch: int, device):
+    """Phase 6, one cell of MPN_CELLS: the update batch from its witness
+    (`mpn_host`'s result, which `host()` waits for; `check()` waits for
+    the worker's satisfaction check, which runs while the card makes the
+    key) to a key and two verified proofs under it.  The mainnet cell
+    saves and reloads its key and proves under it on the host, then with
+    every query on the card; `mpn_b64` proves twice under the key it made.
+    Returns ({"keygen", "proof", "proof_2": (launch counts, sizes)}, the
+    batch's signed transfers)."""
+    (cell_batch, n_constraints, n_vars_pinned, inputs_pinned, key_seed,
+     mainnet) = MPN_CELLS[cell]
+    full = log4_batch == cell_batch
+    asked_at = time.time()
+    w = host()
+    cs, inputs, txs = w.pop("cs"), w.pop("inputs"), w.pop("txs")
     n_vars = len(cs.assignment)
-    z = cs.full_assignment()
-    checks = {
-        "satisfied": unsatisfied is None,
-        "no_cryptography_module": "cryptography" not in sys.modules,
-        "enabled_transfers": sum(t.enabled for t in circuit.transitions)
-        == len(circuit.transitions),
-    }
-    if full:  # the sizes and inputs are pinned for the default batch only
+    comp = cs.compiled()
+    d = qap.domain_size(cs.n_constraints, comp.num_inputs)
+    checks = {"no_cryptography_module": w.pop("no_cryptography_module"),
+              "enabled_transfers": w["enabled"] == w["transfers"]}
+    if full:  # the sizes and inputs are pinned at the cell's batch only
         checks.update(
-            n_constraints_pinned=cs.n_constraints == MPN_B64_CONSTRAINTS,
-            num_vars_pinned=n_vars == MPN_B64_VARS,
-            public_inputs_equal_jax=tuple(inputs) == MPN_B64_PUBLIC_INPUTS)
-    emit({"phase": "mpn_witness", "log4_tree": MPN_LOG4_TREE,
+            n_constraints_pinned=cs.n_constraints == n_constraints,
+            num_vars_pinned=n_vars == n_vars_pinned,
+            public_inputs_equal_jax=tuple(inputs) == inputs_pinned)
+    emit({"phase": "mpn_witness", "cell": cell,
+          "log4_tree": MPN_LOG4_TREE,
           "log4_token_tree": MPN_LOG4_TOKEN_TREE, "log4_batch": log4_batch,
-          "transfers": len(circuit.transitions),
-          "n_constraints": cs.n_constraints, "num_vars": n_vars,
-          "n_terms": [int(a.shape[0]) for a in cs.compiled().rows],
-          "vars_not_0_or_1": sum(1 for v in z if v > 1),
-          "witness_gen_s": witness_s, "synthesis_s": synthesis_s,
-          "satisfied_check_s": satisfied_s,
-          "host_peak_rss": host_peak_rss(), "public_inputs": inputs,
-          **checks})
+          "n_constraints": cs.n_constraints, "num_vars": n_vars, "d": d,
+          "n_terms": [int(a.shape[0]) for a in comp.rows],
+          "worker_done_ahead_s": asked_at - w.pop("done_at"),
+          **w, "public_inputs": inputs, **checks})
     if not all(checks.values()):
         raise SystemExit(f"MPN witness failed its checks: {checks}")
+    del comp
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     record = {}
     t3 = time.perf_counter()
     params, key_run = counted(lambda: keygen.generate_parameters(
-        cs, seed=MPN_KEY_SEED, device=device, record=record))
+        cs, seed=key_seed, device=device, record=record))
     key_s = time.perf_counter() - t3
-    emit({"phase": "mpn_keygen", "d": qap.domain_size(cs.n_constraints,
-                                                      cs.num_inputs),
-          "Np": params.pk.a_query[0].shape[0], "total_s": key_s,
-          "stage_s": record["seconds"],
+    Np = params.pk.a_query[0].shape[0]
+    residency = keygen.default_residency(Np)
+    on_host = [n for n in QUERY_NAMES
+               if isinstance(getattr(params.pk, n)[0], np.ndarray)]
+    emit({"phase": "mpn_keygen", "cell": cell, "d": d, "Np": Np,
+          "device_queries": residency, "queries_on_host": on_host,
+          "total_s": key_s, "stage_s": record["seconds"],
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "max_memory_requested": peak_requested(),
           "host_peak_rss": host_peak_rss(), "launches": key_run[0]})
     require_launched("MPN keygen", KEYGEN_KERNELS, key_run[0])
+    t_c = time.perf_counter()
+    sat = check()
+    emit({"phase": "mpn_satisfied", "cell": cell,
+          "worker_wait_s": time.perf_counter() - t_c, **sat})
+    if not sat["satisfied"]:
+        raise SystemExit("the MPN circuit is not satisfied on the host")
 
-    runs = [key_run]
-    tampered = inputs[:4] + [(inputs[4] + 1) % P]
-    for r, s in ((7, 11), (8, 12)):
-        torch.cuda.reset_peak_memory_stats()
-        record = {}
-        t4 = time.perf_counter()
-        proof, run = counted(lambda: prove.create_proof(
-            params, cs, r=r, s=s, device=device, record=record))
-        total = time.perf_counter() - t4
-        runs.append(run)
-        verdicts = {"verify_accepts": groth16_verify(params.vk, inputs, proof),
-                    "verify_rejects_next_state_plus_1":
-                    not groth16_verify(params.vk, tampered, proof)}
-        emit({"phase": "mpn_proof", "r": r, "s": s, "total_s": total,
-              "stage_s": record["seconds"],
-              "n_heavy_vals": record["n_heavy_vals"],
-              "max_memory_allocated": torch.cuda.max_memory_allocated(),
-              "max_memory_requested": peak_requested(),
-              "host_peak_rss": host_peak_rss(), "launches": run[0],
-              **verdicts})
-        if not all(verdicts.values()):
-            raise SystemExit(f"MPN proof failed verification: {verdicts}")
-    require_launched("MPN proof", PROOF_KERNELS, runs[1][0])
-    drain_profile(params, cs, device, cell="mpn")
+    tmp = tempfile.mkdtemp(prefix="bazuka-mpn-key-") if mainnet else None
+    try:
+        if mainnet:
+            path = os.path.join(tmp, "key")
+            params = mpn_key_reload(params, on_host, path, device, cell)
+        runs = [key_run]
+        tampered = inputs[:4] + [(inputs[4] + 1) % P]
+        for r, s_, resident in ((7, 11, None), (8, 12, mainnet or None)):
+            if resident:
+                t6 = time.perf_counter()
+                key = keygen.load_parameters(path, device=device,
+                                             device_queries=True)
+                load_s = time.perf_counter() - t6
+                key.dev_r1cs = params.dev_r1cs
+            else:
+                key, load_s = params, None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            rec = {}
+            t7 = time.perf_counter()
+            proof, run = counted(lambda: prove.create_proof(
+                key, cs, r=r, s=s_, device=device, record=rec))
+            total = time.perf_counter() - t7
+            runs.append(run)
+            verdicts = {
+                "verify_accepts": groth16_verify(key.vk, inputs, proof),
+                "verify_rejects_next_state_plus_1":
+                not groth16_verify(key.vk, tampered, proof),
+                "big_mode_iff_mainnet": rec["big_mode"] == mainnet}
+            if mainnet:
+                verdicts["fourstep_ran"] = fourstep_launches(run[1]) > 0
+            emit({"phase": "mpn_proof", "cell": cell, "r": r, "s": s_,
+                  "device_queries": resident or residency,
+                  "resident_load_s": load_s, "total_s": total,
+                  "stage_s": rec["seconds"], "in_big_mode": rec["big_mode"],
+                  "n_heavy_vals": rec["n_heavy_vals"],
+                  "memory_allocated_at_start": base,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "max_memory_requested": peak_requested(),
+                  "host_peak_rss": host_peak_rss(), "launches": run[0],
+                  "fourstep_stage_launches": fourstep_launches(run[1]),
+                  **verdicts})
+            if not all(verdicts.values()):
+                raise SystemExit(f"MPN proof failed its checks: {verdicts}")
+            del key
+        require_launched("MPN proof", PROOF_KERNELS, runs[1][0])
+        witness = _witness(params, cs, device)
+        h_profile(params, cs, d, device, cell=cell, witness=witness)
+        drain_profile(params, cs, device, cell=cell, witness=witness)
+    finally:
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
     return dict(zip(("keygen", "proof", "proof_2"), runs)), txs
 
 
@@ -1858,28 +2130,23 @@ def mul_checks(scalars, pks, sb, sp, rows) -> dict:
 HOST_WORKERS = 4
 
 
-def eddsa_phase(n: int, txs, device):
-    """Phase 8: the MPN batch's signed transfers verified in one call; one
-    mainnet block of MPN_BLOCK_TRANSFERS transfers, signed on the host in
-    this process, verified in one call (the headline); n signatures made
-    on the host (every 8th tampered), verified in one call; then
-    `batch_base_mul` and `batch_scalar_mul` alone on n scalars; the
-    block's verification under torch.profiler; then the same three calls
-    on CPU copies of the first PLAIN_ROWS rows in worker processes while
-    this one checks the verdicts and products against the host.  Returns
-    (launch counts, sizes)."""
+def eddsa_phase(n: int, block, device):
+    """Phase 8: one mainnet block, phase 6's signed transfers, verified in
+    one call (the headline); n signatures made on the host (every 8th
+    tampered), verified in one call; then `batch_base_mul` and
+    `batch_scalar_mul` alone on n scalars; the block's verification under
+    torch.profiler; then the same three calls on CPU copies of the first
+    PLAIN_ROWS rows in worker processes while this one checks the verdicts
+    and products against the host.  Returns (launch counts, sizes)."""
     F = fr_field()
     rng = np.random.default_rng(ROOT_SEED)
     t0 = time.perf_counter()
-    block = mpn_transfers([TxBuilder(b"U%d" % i)
-                           for i in range(MPN_BLOCK_TRANSFERS)])
-    block_build_s = time.perf_counter() - t0
     with multiprocessing.get_context("spawn").Pool(HOST_WORKERS) as pool:
         t1 = time.perf_counter()
         batch = eddsa_batch(n, functools.partial(pool.map, chunksize=32))
         sign_s = time.perf_counter() - t1
         args = (batch["pks"], batch["msgs"], batch["sigs"])
-        tx_args, block_args = transfer_args(txs), transfer_args(block)
+        block_args = transfer_args(block)
         scalars = mul_scalars(n, rng)
         s_std = F.encode(np.array(scalars, dtype=object), mont=False,
                          device=device)
@@ -1889,8 +2156,6 @@ def eddsa_phase(n: int, txs, device):
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         _cuda.reset_counts()
-        t2 = time.perf_counter()
-        tx_ok = batch_eddsa_verify(*tx_args, device=device)
         t3 = time.perf_counter()
         block_ok = batch_eddsa_verify(*block_args, device=device)
         t4 = time.perf_counter()
@@ -1917,9 +2182,7 @@ def eddsa_phase(n: int, txs, device):
             ("base_mul", (s_cpu,)),
             ("scalar_mul", (tuple(c[:m].cpu() for c in pts), s_cpu))],
             chunksize=1)
-        checks = {"transfers_all_true": len(tx_ok) == len(txs)
-                  and bool(tx_ok.all()),
-                  "block_all_true": len(block_ok) == len(block)
+        checks = {"block_all_true": len(block_ok) == len(block)
                   and bool(block_ok.all())}
         checks.update(eddsa_checks(batch, verdicts, rng))
         # the four edge scalars and HOST_ROWS random others
@@ -1937,14 +2200,13 @@ def eddsa_phase(n: int, txs, device):
                                    for a, b in zip(sp, plain_sp)))
     bound = rate_bound(EDDSA_PRODUCTS)
     emit({"phase": "eddsa", "phase_s": time.perf_counter() - t0,
-          "block_transfers": len(block), "block_build_host_s": block_build_s,
+          "block_transfers": len(block),
           "block_verify_s": t4 - t3,
           "block_verifies_per_s": len(block) / (t4 - t3),
           "fr_products_per_verify": EDDSA_PRODUCTS,
           "imads_per_verify": product_imads(EDDSA_PRODUCTS),
           "bound_verifies_per_s": bound,
           "block_bound_s": len(block) / bound,
-          "transfers": len(txs), "transfers_verify_s": t3 - t2,
           "signatures": n, "tampered": int((~batch["expected"]).sum()),
           "sign_host_s": sign_s, "host_workers": HOST_WORKERS,
           "verify_s": t5 - t4, "verifies_per_s": n / (t5 - t4),
@@ -1964,15 +2226,30 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-d", type=int, default=22,
                     help="log2 of the synthetic proof's and key's domain "
-                         "(default 22; below 22 the MPN batch is cut to 4 "
-                         "transfers, the Poseidon tree and batch to 4^6 "
-                         "leaves and 2^16 hashes, the EdDSA batch to 256 "
-                         "signatures)")
+                         "(default 22; below 22 both MPN batches are cut "
+                         "to 4 transfers, the mainnet one with big mode's "
+                         "thresholds lowered, the Poseidon tree and batch "
+                         "to 4^6 leaves and 2^16 hashes, the EdDSA batch "
+                         "to 256 signatures)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     device = torch.device("cuda")
+    small = args.log_d < 22
+    # phase 6's host halves run in a worker per cell from here on, beside
+    # phases 2-5 and 7, and each satisfaction check beside its cell's key
+    # (the mainnet cell's worker, the longer, starts first)
+    batches = {cell: 1 if small else spec[0]
+               for cell, spec in sorted(MPN_CELLS.items(), reverse=True)}
+    with contextlib.ExitStack() as stack:
+        waits = {cell: mpn_worker(stack.enter_context(
+            multiprocessing.get_context("spawn").Pool(1)), log4_batch)
+            for cell, log4_batch in batches.items()}
+        return run_phases(args, device, small, batches, waits)
+
+
+def run_phases(args, device, small: bool, batches: dict, waits: dict):
     smi = nvidia_smi_line()
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi,
@@ -1990,24 +2267,40 @@ def main(argv=None) -> int:
                     or "spill" in line):
                 print(f"  [{src}] {line.strip()}", flush=True)
 
+    timeline = {"build": time.perf_counter() - t0}
+
+    def lap(name):
+        timeline[name] = time.perf_counter() - t0 - sum(timeline.values())
+        torch.cuda.empty_cache()
+
     toy_phase(device)
+    lap("toy")
     proof_run = proof_phase(args.log_d, device)
-    torch.cuda.empty_cache()  # the synthetic key is gone before keygen
+    lap("proof")  # the synthetic key is gone before keygen
     keygen_run = keygen_phase(args.log_d, device)
-    torch.cuda.empty_cache()  # so is the synthetic circuit's key
-    small = args.log_d < 22
-    mpn_runs, mpn_txs = mpn_phase(1 if small else MPN_LOG4_BATCH, device)
-    mpn_run = merge_phases(*mpn_runs.values())
-    torch.cuda.empty_cache()
+    lap("keygen")
+    # phase 7 runs before phase 6, while the worker finishes its circuit
     poseidon_run = poseidon_phase(6 if small else POSEIDON_LOG4_LEAVES,
                                   16 if small else POSEIDON_LOG2_BATCH,
                                   device)
-    torch.cuda.empty_cache()
+    lap("poseidon")
+    b64_runs, _ = mpn_phase("mpn_b64", *waits["mpn_b64"],
+                            batches["mpn_b64"], device)
+    b64_run = merge_phases(*b64_runs.values())
+    lap("mpn_b64")
+    if small:
+        for name, value in lower_for_small_run().items():
+            print(f"lowered for the small run: {name} = {value}", flush=True)
+    mpn_runs, mpn_txs = mpn_phase("mpn_b256", *waits["mpn_b256"],
+                                  batches["mpn_b256"], device)
+    mpn_run = merge_phases(*mpn_runs.values())
+    lap("mpn")
     eddsa_run = eddsa_phase(256 if small else EDDSA_SIGS, mpn_txs, device)
-    torch.cuda.empty_cache()
-    launches, sizes = merge_phases(proof_run, keygen_run, mpn_run,
+    lap("eddsa")
+    launches, sizes = merge_phases(proof_run, keygen_run, b64_run, mpn_run,
                                    poseidon_run, eddsa_run)
     rows = kernel_phase(sizes, device)
+    lap("kernel")
     # the MPN key's and first proof's launches at the replayed times
     emit({"phase": "mpn_launch_weighted", **{
         run: {name: launch_weighted(rows[name], mpn_runs[run][1][name])
@@ -2029,6 +2322,7 @@ def main(argv=None) -> int:
             "replaces": k.replaces, "launches": launches[name],
             "launches_by_phase": {"proof": proof_run[0][name],
                                   "keygen": keygen_run[0][name],
+                                  "mpn_b64": b64_run[0][name],
                                   "mpn": mpn_run[0][name],
                                   "poseidon": poseidon_run[0][name],
                                   "eddsa": eddsa_run[0][name]},
@@ -2036,6 +2330,8 @@ def main(argv=None) -> int:
                                          "bound_ms", "bound_by",
                                          "library_ms", "sizes")},
         })
+    emit({"phase": "timeline", "seconds": timeline,
+          "total_s": sum(timeline.values())})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,6 +8,10 @@ wrapper runs its plain version:
   every size, jax backend at the smallest) and `ntt_host` at log_n 3-10,
   forward and inverse, with the kernel's k and a small one so both parts
   run; the in-place wrapper writes the same over its input;
+- the stages over a batch of rows (the four-step's row transforms) equal
+  the whole-array form run row by row and the JAX package's batched stage
+  loop, and refuse a row length that is no power of two, a row longer
+  than the array, or a table of another row length;
 - the Fp inversion's plain version equals the JAX `fp_field("jax")
   .inv_mont` on 0, 1, p - 1 and random inputs, and `LimbField.inv_mont`
   takes it;
@@ -68,6 +72,44 @@ def test_ntt_stages_plain_matches_jax(log_n, inverse):
     same = fk.ntt_stages_(a, tw)
     assert same is a
     assert torch.equal(a, fk.ntt_stages_plain(before, tw))
+
+
+@pytest.mark.parametrize("log_m, low_log", [(3, 10), (5, 2), (6, 10)])
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+def test_ntt_stages_over_rows(log_m, low_log, inverse):
+    F, Fj = fr_field(), j_fr("np")
+    rows, m = 4, 1 << log_m
+    vals = rand_vals(F.p, rows * m, 40 + log_m + inverse)
+    vals[0], vals[m + 1] = 0, F.p - 1
+    x = F.encode(vals, device="cpu").view(rows, m, F.n)
+    a = x[:, tn._rev(log_m, "cpu")].reshape(rows * m, F.n)
+    tw = tn._stage_twiddles(log_m, inverse, "cpu")
+    got = fk.ntt_stages_plain(a, tw, low_log, row=m)
+    each = [fk.ntt_stages_plain(a[i * m:(i + 1) * m], tw, low_log)
+            for i in range(rows)]
+    assert torch.equal(got, torch.cat(each))
+    want = jn._ntt_batched_fn(log_m, inverse, "np", scale=False)(
+        Fj.encode(vals).reshape(rows, m, Fj.n), jn._rev_dev(log_m, "np"),
+        jn._stage_twiddles(log_m, inverse, "np"))
+    assert np.array_equal(to_numpy(got), np.asarray(want).reshape(-1, F.n))
+    same = a.clone()
+    assert fk.ntt_stages_(same, tw, row=m) is same
+    assert torch.equal(same, got)
+    # row = 0 and row = n are one row of n
+    assert torch.equal(fk.ntt_stages_plain(a[:m], tw, row=m),
+                       fk.ntt_stages_plain(a[:m], tw, row=0))
+
+
+def test_ntt_stages_refuse_bad_rows():
+    F = fr_field()
+    a = F.encode(rand_vals(F.p, 16, 9), device="cpu")
+    with pytest.raises(ValueError):
+        fk.ntt_stages_plain(a, tn._stage_twiddles(2, False, "cpu"), row=3)
+    with pytest.raises(ValueError):
+        fk.ntt_stages_plain(a, tn._stage_twiddles(5, False, "cpu"), row=32)
+    with pytest.raises(ValueError):  # a table of another row length
+        fk.ntt_stages_(a.to("meta"), tn._stage_twiddles(3, False, "cpu")
+                       .to("meta"), row=4)
 
 
 def test_ntt_mont_runs_the_stage_entry():

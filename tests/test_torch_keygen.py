@@ -91,7 +91,8 @@ def vk_bytes_jax(vk):
 def assert_equals_jax_key(port, jax):
     for name in QUERIES:
         (am, inf), (jam, jinf) = getattr(port.pk, name), getattr(jax.pk, name)
-        assert am.dtype == torch.int32 and inf.dtype == torch.bool
+        # a toy key lives on the device, narrow: int16 limbs, uint8 flags
+        assert am.dtype == torch.int16 and inf.dtype == torch.uint8
         assert np.array_equal(to_numpy(am), np.asarray(jam, np.uint32)), name
         assert inf.tolist() == (np.asarray(jinf) != 0).tolist(), name
     for f in HEAD:

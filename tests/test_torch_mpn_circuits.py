@@ -9,7 +9,9 @@
   once next_state is off by one.  So do the three empty circuits.
 - `chip_smoke.py`'s MPN batch (deposits, then a ring of transfers) equals
   the same steps run by the JAX package at (3, 1, 1), and its pinned
-  public inputs at (15, 1, 3), 64 transfers, are the JAX package's.
+  public inputs at (15, 1, 3) and (15, 1, 4), 64 and 256 transfers, are
+  the JAX package's (the slow tier also recomputes the 256-transfer ones
+  with the port, and both packages' constraint and variable counts).
 - Slow tier: a proof of the deposit circuit at (1, 1, 0) under a key the
   port generated, on the CPU, verified.
 """
@@ -209,12 +211,38 @@ def test_chip_smoke_batch_matches_jax():
 
 
 def test_chip_smoke_public_inputs_are_jax_s():
-    """The 64-transfer batch at log4_tree 15 that phase 6 proves."""
-    inputs, trans = _jax_update_batch(chip_smoke.MPN_LOG4_TREE,
-                                      chip_smoke.MPN_LOG4_TOKEN_TREE,
-                                      chip_smoke.MPN_LOG4_BATCH)
-    assert len(trans) == 64 and all(t.enabled for t in trans)
-    assert tuple(inputs) == chip_smoke.MPN_B64_PUBLIC_INPUTS
+    """The batches of 64 and of 256 transfers (mainnet's) at log4_tree 15
+    that phase 6 proves."""
+    for log4_batch, pinned in (
+            (chip_smoke.MPN_B64_LOG4_BATCH, chip_smoke.MPN_B64_PUBLIC_INPUTS),
+            (chip_smoke.MPN_LOG4_BATCH, chip_smoke.MPN_B256_PUBLIC_INPUTS)):
+        inputs, trans = _jax_update_batch(chip_smoke.MPN_LOG4_TREE,
+                                          chip_smoke.MPN_LOG4_TOKEN_TREE,
+                                          log4_batch)
+        assert len(trans) == 4 ** log4_batch
+        assert all(t.enabled for t in trans)
+        assert tuple(inputs) == pinned
+
+
+@pytest.mark.slow
+def test_chip_smoke_b256_pins_in_both_packages():
+    """Phase 6's pinned values at (15, 1, 4), recomputed: the public
+    inputs by each package's witness generators, and the constraint and
+    variable counts by each package's update circuit synthesised in setup
+    mode (no witness, a few GB; the proving-mode synthesis takes tens)."""
+    log4 = (chip_smoke.MPN_LOG4_TREE, chip_smoke.MPN_LOG4_TOKEN_TREE,
+            chip_smoke.MPN_LOG4_BATCH)
+    _, inputs, txs = chip_smoke.mpn_update_batch(*log4)
+    assert len(txs) == 256
+    assert tuple(inputs) == chip_smoke.MPN_B256_PUBLIC_INPUTS
+    assert _jax_update_batch(*log4)[0] == inputs
+    for pkg in PACKAGES:
+        m = _mods(pkg)
+        c = m.circuits.UpdateCircuit.empty(*log4)
+        cs = m.circuits.synthesize_circuit(c, proving=False)
+        assert cs.n_constraints == chip_smoke.MPN_B256_CONSTRAINTS, pkg
+        assert len(cs.assignment) == chip_smoke.MPN_B256_VARS, pkg
+        del cs
 
 
 @pytest.mark.slow

@@ -70,3 +70,53 @@ def test_rejects_non_power_of_two():
     F = fr_field()
     with pytest.raises(ValueError):
         tn.ntt_mont(F.encode(rand_vals(12, 1), device="cpu"))
+
+
+@pytest.fixture
+def fourstep_forced(monkeypatch):
+    """The four-step from 2^4 up, over chunks of 2^6 elements (several per
+    pass), in both packages (as tests/test_ntt.py forces it)."""
+    for mod in (jn, tn):
+        monkeypatch.setattr(mod, "_FOURSTEP_MIN_LOG_N", 4)
+        monkeypatch.setattr(mod, "_FOURSTEP_CHUNK_LANES", 1 << 6)
+
+
+@pytest.mark.parametrize("log_n", [5, 8])  # A != B, A = B
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fourstep_matches_jax(fourstep_forced, log_n, inverse):
+    F, Fj = fr_field(), j_fr("jax")
+    vals = rand_vals(1 << log_n, 200 + log_n + 10 * inverse)
+    x = F.encode(vals, device="cpu")
+    before = x.clone()
+    got = tn._ntt_mont_fourstep(x, log_n, inverse)
+    assert (x == before).all(), "the four-step changed its input"
+    want = jn._ntt_mont_fourstep(Fj.xp.asarray(Fj.encode(vals)), log_n,
+                                 inverse, "jax")
+    assert np.array_equal(to_numpy(got), np.asarray(want))
+    # ntt_mont dispatches to it, and it is the transform
+    assert torch.equal(tn.ntt_mont(x, inverse), got)
+    assert [int(v) for v in F.decode(got)] == jn.ntt_host(vals, inverse)
+
+
+@pytest.mark.parametrize("log_n", [5, 8])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("scale", [False, True])
+def test_batched_matches_jax(log_n, inverse, scale):
+    F, Fj = fr_field(), j_fr("jax")
+    B = 3
+    vals = rand_vals(B << log_n, 300 + log_n)
+    x = F.encode(vals, device="cpu").view(B, 1 << log_n, F.n)
+    got = tn.ntt_mont_batched(x, inverse, scale=scale)
+    enc = Fj.xp.asarray(Fj.encode(vals).reshape(B, 1 << log_n, Fj.n))
+    want = jn.ntt_mont_batched(enc, inverse, "jax", scale=scale)
+    assert np.array_equal(to_numpy(got), np.asarray(want))
+
+
+def test_tables_cached_only_up_to_the_limit(monkeypatch):
+    """Tables of at most 2^_TABLE_CACHE_MAX_LOG_N rows are cached, larger
+    ones rebuilt per call, with the same limbs."""
+    monkeypatch.setattr(tn, "_TABLE_CACHE_MAX_LOG_N", 5)
+    for build in (tn._stage_twiddles, tn._coset_scale):
+        assert build(5, False, "cpu") is build(5, False, "cpu")
+        a, b = build(6, True, "cpu"), build(6, True, "cpu")
+        assert a is not b and torch.equal(a, b)

@@ -102,7 +102,9 @@ def _same_params(a, b):
         assert getattr(a.pk, f) == getattr(b.pk, f)
     for name in QUERIES:
         (am_a, inf_a), (am_b, inf_b) = getattr(a.pk, name), getattr(b.pk, name)
-        assert am_a.dtype == torch.int32 and inf_a.dtype == torch.bool
+        # a toy key lives on the device, narrow: int16 limbs, uint8 flags
+        for am, inf in ((am_a, inf_a), (am_b, inf_b)):
+            assert am.dtype == torch.int16 and inf.dtype == torch.uint8
         assert torch.equal(am_a, am_b) and torch.equal(inf_a, inf_b)
 
 

@@ -65,7 +65,7 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
-        f"for m in {mods!r} + ['chip_smoke', 'kernel_ab']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'kernel_ab', 'ntt_ab']:\n"
         "    importlib.import_module(m)\n"
         # signing and verifying import nothing later either
         "from bazuka_tpu_torch.core.transaction import ContractId, Money\n"
@@ -276,3 +276,20 @@ def test_poseidon_and_eddsa_checks_at_tiny_size():
     assert all(chip_smoke.mul_checks(scalars, pks, sb, sp, rows).values())
     other = [1, 0] + scalars[2:]
     assert not any(chip_smoke.mul_checks(other, pks, sb, sp, rows).values())
+
+
+def test_mpn_worker_sends_its_circuit_when_asked():
+    """`chip_smoke.mpn_worker` at 4 transfers in a spawn worker: the
+    circuit stays there until `host()` asks for it, arrives with the
+    pinned-shape result keys, and `check()` finds it satisfied."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        host, check = chip_smoke.mpn_worker(pool, 1)
+        w = host()
+        assert w["transfers"] == w["enabled"] == 4
+        assert w["worker_wait_s"] >= 0 and w["transfer_s"] >= 0
+        _, inputs, _ = chip_smoke.mpn_update_batch(log4_batch=1)
+        assert w["inputs"] == inputs and len(w["txs"]) == 4
+        assert w["cs"].n_constraints > 0
+        assert check()["satisfied"]

@@ -186,6 +186,25 @@ def _consume(q):
     return tuple(_widen_u32(t) for t in q)
 
 
+def assemble(pk, sums: dict, r: int, s: int) -> Groth16Proof:
+    """The host combine of the five MSMs' sums ("a", "b_g1", "h", "l",
+    "b_g2"; None for the zero sum) with α, β, δ and r, s into (A, B, C)."""
+    g1a = bls.g1_add
+    A_pt = g1a(g1a(pk.alpha_g1, sums["a"]), bls.g1_mul(pk.delta_g1, r))
+    B1_pt = g1a(g1a(pk.beta_g1, sums["b_g1"]), bls.g1_mul(pk.delta_g1, s))
+    B2_pt = bls.g2_add(
+        bls.g2_add(pk.beta_g2, sums["b_g2"]), bls.g2_mul(pk.delta_g2, s)
+    )
+    C_pt = g1a(
+        g1a(
+            g1a(sums["l"], sums["h"]),
+            g1a(bls.g1_mul(A_pt, s), bls.g1_mul(B1_pt, r)),
+        ),
+        bls.g1_neg(bls.g1_mul(pk.delta_g1, r * s % bls.R)),
+    )
+    return Groth16Proof(a=g1_wire(A_pt), b=g2_wire(B2_pt), c=g1_wire(C_pt))
+
+
 def create_proof(
     params: Parameters,
     cs: ConstraintSystem,
@@ -301,20 +320,7 @@ def create_proof(
         del q
         tick(f"msm_{name}")
 
-    g1a = bls.g1_add
-    A_pt = g1a(g1a(pk.alpha_g1, sums["a"]), bls.g1_mul(pk.delta_g1, r))
-    B1_pt = g1a(g1a(pk.beta_g1, sums["b_g1"]), bls.g1_mul(pk.delta_g1, s))
-    B2_pt = bls.g2_add(
-        bls.g2_add(pk.beta_g2, sums["b_g2"]), bls.g2_mul(pk.delta_g2, s)
-    )
-    C_pt = g1a(
-        g1a(
-            g1a(sums["l"], sums["h"]),
-            g1a(bls.g1_mul(A_pt, s), bls.g1_mul(B1_pt, r)),
-        ),
-        bls.g1_neg(bls.g1_mul(pk.delta_g1, r * s % bls.R)),
-    )
-    proof = Groth16Proof(a=g1_wire(A_pt), b=g2_wire(B2_pt), c=g1_wire(C_pt))
+    proof = assemble(pk, sums, r, s)
     tick("combine")
     if record is not None:
         record["seconds"] = stages

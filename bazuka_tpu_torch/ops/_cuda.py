@@ -7,7 +7,8 @@ hash of the sources and flags, and are built at first use; `build_all()`
 starts one `nvcc` per source at once and waits for all of them.
 
 Every C entry point launches on the stream it is given (PyTorch's current
-stream) and returns `cudaGetLastError()`; `CudaKernel.launch` raises on a
+stream of the operands' card, that card made the current device for the
+call) and returns `cudaGetLastError()`; `CudaKernel.launch` raises on a
 non-zero code and adds one to the kernel's launch count; it also tallies
 the launch's sizes, so a caller can replay a run's kernels at the shapes
 that run gave them.
@@ -139,9 +140,14 @@ class CudaKernel:
 
     def launch(self, tensors, n: int, extra: int = 0):
         fn = self._get()
-        stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-        rc = fn(*[ptr(t) for t in tensors], n, extra,
-                ctypes.c_void_p(stream))
+        dev = tensors[0].device
+        # the operands' card is the current device for the launch: on a
+        # mesh over several cards the caller's current device may be
+        # another one, whose context knows neither the stream nor the data
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(*[ptr(t) for t in tensors], n, extra,
+                    ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
         self.launches += 1

@@ -370,15 +370,19 @@ def make_dedup_plan(s_np: np.ndarray, threshold: int = 8) -> _DedupPlan:
     return _DedupPlan(s_np, threshold)
 
 
-def _presum(P_am, inf, plan: _DedupPlan, kind: str):
+def _presum(P_am, inf, plan: _DedupPlan, kind: str, rows):
     """Projective sums (n_proj, 24, V) of each heavy group's points.
-    P_am and inf may be narrow (int16 limbs, uint8 flags): only the rows
-    each round gathers are widened."""
+    `rows` ((n_heavy_elems,) int64, numpy or a tensor) are the rows of
+    P_am that hold the points of plan.hpos, in its order: plan.hpos
+    itself over the whole query, 0, 1, ... over the heavy rows gathered
+    alone (`parallel.prove._presum_from_host`).  P_am and inf may be
+    narrow (int16 limbs, uint8 flags): only the rows each round gathers
+    are widened."""
     dev = P_am.device
     madd = ck.madd_select_lm if kind == "g1" else ck.madd_select_g2_lm
     addsel = ck.add_select_lm if kind == "g1" else ck.add_select_g2_lm
     gidx = torch.zeros(plan.Hp, dtype=torch.int64, device=dev)
-    gidx[:plan.n_heavy_elems] = torch.from_numpy(plan.hpos).to(dev)
+    gidx[:plan.n_heavy_elems] = torch.as_tensor(rows).to(dev)
     run_start = torch.from_numpy(plan.run_start).to(dev)
     run_len = torch.from_numpy(plan.run_len).to(dev)
     acc = _identity_lanes(kind, plan.Ks, dev)
@@ -396,18 +400,18 @@ def _presum(P_am, inf, plan: _DedupPlan, kind: str):
     return acc[:, :, torch.from_numpy(plan.first_lane).to(dev)]
 
 
-def presum_g1(P_am, inf, plan: _DedupPlan):
-    """Sum each heavy group's points, over a wide or a narrow query.
-    Returns ((V, 2, 24) affine sums, (V,) inf mask) aligned with
-    plan.heavy_scalars."""
-    s = _presum(P_am, inf, plan, "g1")
+def presum_g1(P_am, inf, plan: _DedupPlan, rows=None):
+    """Sum each heavy group's points, over a wide or a narrow query (its
+    rows plan.hpos, or `rows` as `_presum` takes them).  Returns ((V, 2,
+    24) affine sums, (V,) inf mask) aligned with plan.heavy_scalars."""
+    s = _presum(P_am, inf, plan, "g1", plan.hpos if rows is None else rows)
     return wst.g1_proj_to_am((s[0].T, s[1].T, s[2].T))
 
 
-def presum_g2_am(P_am, inf, plan: _DedupPlan):
+def presum_g2_am(P_am, inf, plan: _DedupPlan, rows=None):
     """G2 analog of presum_g1 over the (N, 4, 24) affine layout, wide or
     narrow (the big-mode G2 MSM's, `prove._g2_msm_big`)."""
-    s = _presum(P_am, inf, plan, "g2")
+    s = _presum(P_am, inf, plan, "g2", plan.hpos if rows is None else rows)
     return wst.g2_proj_to_am(
         ((s[0].T, s[1].T), (s[2].T, s[3].T), (s[4].T, s[5].T)))
 

@@ -60,7 +60,20 @@ Phases, each printed as one JSON line:
               (seed b"mpn-update-b64", every query narrow on the card) and
               two proofs under it (7, 11 and 8, 12), each verified and
               rejected with next_state + 1, and the same profiles as
-              below.  Then `mpn_b256`, the mainnet proof (the batch-256
+              below; then the `sharded` phase under its key: the sharded
+              prover of `bazuka_tpu_torch/parallel/` with four shards on
+              the card (a correctness gate; they run in turn): first
+              `ntt_four_step` over the four shards at 2^22 and 2^24
+              random limbs, forward and inverse, cold and warm, limb for
+              limb against `ops.ntt.ntt_mont` (`sharded_fourstep`); then
+              `create_proof_sharded` of the batch at 7, 11, its queries
+              narrow on the card, and again with them on the host: each
+              proof's bytes equal the cell's first proof, verified and
+              rejected with next_state + 1, stage and upload seconds,
+              peaks, launches (K1's multiplies, stage entry and Fp
+              inversion and K2-K5 must each have run; the tree reduce
+              of the shards' window sums is K3/K5 at 44 and 22 lanes).
+              Then `mpn_b256`, the mainnet proof (the batch-256
               update circuit, d = Np = 2^24): 256 users (seeds
               b"U0".."U255") each deposit 1,000 of token 123 into a fresh
               MpnConfig(15, 1, 4, 4, 4, 0xBEEF) state, then user i pays
@@ -114,7 +127,10 @@ Phases, each printed as one JSON line:
               curve), verified in one call; `batch_base_mul` and
               `batch_scalar_mul` alone on 4,096 scalars (0, 1, ORDER − 1
               and ORDER among them); the block's verification under
-              torch.profiler (`eddsa_profile`); then the same three calls
+              torch.profiler (`eddsa_profile`); the block over two shards
+              on the card, every 8th message + 1
+              (`parallel.eddsa_verify_sharded`), the verdicts those of
+              the construction; then the same three calls
               on CPU copies of the first 256 rows (the plain path, in
               three of the workers), equal, while the verdicts are held to
               those of the construction and the host JubJub.verify's on
@@ -124,10 +140,11 @@ Phases, each printed as one JSON line:
               --log-d 22 both cells of phase 6 prove 4 transfers (d =
               2^18), `mpn_b256` with BIG_DOMAIN, the four-step's threshold
               and chunk and the residency thresholds lowered (each
-              printed), so that the mainnet path runs, and phases 7 and 8
-              run at 4^6 leaves, 2^16 batch hashes and 256 signatures
-  9. kernel   each kernel replayed at every size phases 4-8 launched it
-              with (the NTT's stages also over rows of 2^11 and 2^12 of
+              printed), so that the mainnet path runs, the `sharded`
+              four-step runs at 2^16 and 2^18, and phases 7 and 8 run at
+              4^6 leaves, 2^16 batch hashes and 256 signatures
+  9. kernel   each kernel replayed at every size phases 4-8 (the
+              `sharded` runs included) launched it with (the NTT's stages also over rows of 2^11 and 2^12 of
               2^23 and 2^24 elements), on fresh random operands (plus the edge cases: 0 and
               p − 1 among K1's operands and the NTT's inputs, R − 1 in one
               of K1's operands against a canonical other, 0, 1 and
@@ -142,8 +159,9 @@ Then the `mpn_launch_weighted` line (the replayed times weighted by the
 mainnet key's and first proof's launches), the `launch_weighted` line (K1 Fr
 weighted by phase 7's and phase 8's launches), the `{"kernels": [...]}`
 line
-(launch counts of the phases that ran each kernel, by phase and in all,
-times averaged over their launches) and the last line
+(launch counts of the phases that ran each kernel, by phase, "sharded"
+the `sharded` phase's and phase 8's sharded call's, and in all, times
+averaged over their launches) and the last line
 `{"ok": true, "device": {...}}`, after a `timeline` line of each phase's
 seconds.  Any failed check raises, so the script
 exits non-zero and prints no result.  Without a CUDA device it exits with
@@ -154,6 +172,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import multiprocessing
@@ -197,6 +216,7 @@ from bazuka_tpu_torch.mpn.config import MpnConfig
 from bazuka_tpu_torch.mpn.deposit import deposit
 from bazuka_tpu_torch.mpn.transitions import UpdateTransition
 from bazuka_tpu_torch.mpn.update import update
+from bazuka_tpu_torch import parallel
 from bazuka_tpu_torch.ops import _cuda
 from bazuka_tpu_torch.ops import curve_kernels as ck
 from bazuka_tpu_torch.ops import field_kernel as fk
@@ -1785,8 +1805,9 @@ def mpn_phase(cell: str, host, check, log4_batch: int, device):
     the worker's satisfaction check, which runs while the card makes the
     key) to a key and two verified proofs under it.  The mainnet cell
     saves and reloads its key and proves under it on the host, then with
-    every query on the card; `mpn_b64` proves twice under the key it made.
-    Returns ({"keygen", "proof", "proof_2": (launch counts, sizes)}, the
+    every query on the card; `mpn_b64` proves twice under the key it made,
+    then runs `sharded_phase` under it.  Returns ({"keygen", "proof",
+    "proof_2" and for `mpn_b64` "sharded": (launch counts, sizes)}, the
     batch's signed transfers)."""
     (cell_batch, n_constraints, n_vars_pinned, inputs_pinned, key_seed,
      mainnet) = MPN_CELLS[cell]
@@ -1846,6 +1867,7 @@ def mpn_phase(cell: str, host, check, log4_batch: int, device):
             path = os.path.join(tmp, "key")
             params = mpn_key_reload(params, on_host, path, device, cell)
         runs = [key_run]
+        proof_bytes = {}
         tampered = inputs[:4] + [(inputs[4] + 1) % P]
         for r, s_, resident in ((7, 11, None), (8, 12, mainnet or None)):
             if resident:
@@ -1865,6 +1887,7 @@ def mpn_phase(cell: str, host, check, log4_batch: int, device):
                 key, cs, r=r, s=s_, device=device, record=rec))
             total = time.perf_counter() - t7
             runs.append(run)
+            proof_bytes.setdefault("first", ser.dumps(proof))
             verdicts = {
                 "verify_accepts": groth16_verify(key.vk, inputs, proof),
                 "verify_rejects_next_state_plus_1":
@@ -1890,10 +1913,123 @@ def mpn_phase(cell: str, host, check, log4_batch: int, device):
         witness = _witness(params, cs, device)
         h_profile(params, cs, d, device, cell=cell, witness=witness)
         drain_profile(params, cs, device, cell=cell, witness=witness)
+        del witness
+        named = dict(zip(("keygen", "proof", "proof_2"), runs))
+        if not mainnet:  # the 64-transfer cell is proven over a mesh too
+            named["sharded"] = sharded_phase(
+                params, cs, inputs, proof_bytes["first"],
+                SHARDED_LOG_NS if full else SMALL_SHARDED_LOG_NS, device)
     finally:
         if tmp:
             shutil.rmtree(tmp, ignore_errors=True)
-    return dict(zip(("keygen", "proof", "proof_2"), runs)), txs
+    return named, txs
+
+
+# The `sharded` phase, inside `mpn_b64`: the sharded prover of
+# `bazuka_tpu_torch/parallel/` with SHARDS shards on the one card (a
+# correctness gate: the shards run one after another, so its seconds are
+# the cost of sharding on one card, not a speed over several), the
+# four-step over that mesh at 2^SHARDED_LOG_NS (below --log-d 22 at
+# 2^SMALL_SHARDED_LOG_NS); phase 8 verifies the mainnet block over
+# EDDSA_SHARDS shards.
+SHARDS, EDDSA_SHARDS = 4, 2
+SHARDED_LOG_NS, SMALL_SHARDED_LOG_NS = (22, 24), (16, 18)
+
+
+def one_card_mesh(n_shards: int):
+    """n_shards shards, all on card 0."""
+    return parallel.make_mesh(n_shards, ["cuda:0"])
+
+
+def fourstep_checks(mesh, log_ns, device) -> list:
+    """`parallel.ntt_four_step` over the mesh on 2^log_n random canonical
+    limbs, forward and inverse, twice each (the first call at its size and
+    direction builds its row tables: `cold_s`), against `ops.ntt.ntt_mont`
+    on the card; one row per size and direction."""
+    F = fr_field()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(ROOT_SEED)
+    rows = []
+    for log_n in log_ns:
+        x = random_field_limbs(F, 1 << log_n, gen, device)
+        for inverse in (False, True):
+            seconds = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = parallel.ntt_four_step(mesh, x, inverse)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            got = parallel.gather_rows(out, device)
+            del out
+            rows.append({"log_n": log_n, "inverse": inverse,
+                         "cold_s": seconds[0], "warm_s": seconds[1],
+                         "equal_ntt_mont": torch.equal(
+                             got, ntt_mod.ntt_mont(x, inverse))})
+            del got
+        del x
+    return rows
+
+
+def host_resident(params):
+    """`params` with its five queries as host numpy arrays (uint16 limbs,
+    uint8 flags), the rest shared."""
+    pk = dataclasses.replace(params.pk, **{
+        n: keygen._narrow(getattr(params.pk, n)) for n in QUERY_NAMES})
+    return keygen.Parameters(pk=pk, vk=params.vk, dev_r1cs=params.dev_r1cs)
+
+
+def sharded_phase(params, cs, inputs, want: bytes, log_ns, device):
+    """The `sharded` phase: `fourstep_checks` over SHARDS shards on the
+    card, then `create_proof_sharded` of the cell's batch at r, s = 7, 11
+    over the same mesh under the cell's key, its queries narrow on the
+    card, then the same proof with them on the host: each proof's bytes
+    equal `want` (the cell's single-device proof at 7, 11), accepted for
+    the public inputs, rejected with next_state + 1, K1-K5 launched.
+    Returns (launch counts, sizes) of all its runs."""
+    mesh = one_card_mesh(SHARDS)
+    t0 = time.perf_counter()
+    fs, fs_run = counted(lambda: fourstep_checks(mesh, log_ns, device))
+    emit({"phase": "sharded_fourstep", "shards": [str(x) for x in mesh],
+          "runs": fs, "launches": fs_run[0],
+          "stage_entry_sizes": size_rows(fs_run[1][fk.K_NTT.name])})
+    if not all(r["equal_ntt_mont"] for r in fs):
+        raise SystemExit("the four-step over the mesh disagrees with "
+                         "ntt_mont")
+    require_launched("sharded four-step", (fk.K_FR.name, fk.K_NTT.name),
+                     fs_run[0])
+    runs = [fs_run]
+    tampered = inputs[:4] + [(inputs[4] + 1) % P]
+    for where, key in (("card", params), ("host", host_resident(params))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rec = {}
+        t1 = time.perf_counter()
+        proof, run = counted(lambda: parallel.create_proof_sharded(
+            key, cs, mesh, r=7, s=11, record=rec))
+        total = time.perf_counter() - t1
+        runs.append(run)
+        checks = {
+            "bytes_equal_single_device": ser.dumps(proof) == want,
+            "verify_accepts": groth16_verify(key.vk, inputs, proof),
+            "verify_rejects_next_state_plus_1":
+            not groth16_verify(key.vk, tampered, proof)}
+        emit({"phase": "sharded", "queries": where, "shards": rec["shards"],
+              "r": 7, "s": 11, "total_s": total, "stage_s": rec["seconds"],
+              "n_heavy_vals": rec["n_heavy_vals"],
+              "memory_allocated_at_start": base,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "max_memory_requested": peak_requested(),
+              "host_peak_rss": host_peak_rss(), "launches": run[0],
+              "fourstep_stage_launches": fourstep_launches(run[1]),
+              "k3_lanes": size_rows(run[1][ck.K_G1_ADD.name]),
+              "k5_lanes": size_rows(run[1][ck.K_G2_ADD.name]), **checks})
+        if not all(checks.values()):
+            raise SystemExit(f"sharded proof failed its checks: {checks}")
+        require_launched("sharded proof", PROOF_KERNELS, run[0])
+    emit({"phase": "sharded_total", "seconds": time.perf_counter() - t0})
+    return merge_phases(*runs)
 
 
 # ------------------------------------------------ Poseidon and JubJub EdDSA
@@ -2135,9 +2271,11 @@ def eddsa_phase(n: int, block, device):
     one call (the headline); n signatures made on the host (every 8th
     tampered), verified in one call; then `batch_base_mul` and
     `batch_scalar_mul` alone on n scalars; the block's verification under
-    torch.profiler; then the same three calls on CPU copies of the first
-    PLAIN_ROWS rows in worker processes while this one checks the verdicts
-    and products against the host.  Returns (launch counts, sizes)."""
+    torch.profiler; the block over EDDSA_SHARDS shards, every 8th message
+    + 1 (`parallel.eddsa_verify_sharded`); then the same three calls on
+    CPU copies of the first PLAIN_ROWS rows in worker processes while
+    this one checks the verdicts and products against the host.  Returns
+    (launch counts, sizes) of the phase and of its sharded call."""
     F = fr_field()
     rng = np.random.default_rng(ROOT_SEED)
     t0 = time.perf_counter()
@@ -2172,6 +2310,16 @@ def eddsa_phase(n: int, block, device):
         profile = profiled_run(
             lambda: batch_eddsa_verify(*block_args, device=device),
             wall_s=t4 - t3)
+        # the block over EDDSA_SHARDS shards, every 8th message + 1
+        pks_b, msgs_b, sigs_b = block_args
+        msgs_t = [(m + 1) % P if i % 8 == 0 else m
+                  for i, m in enumerate(msgs_b)]
+        t_s = time.perf_counter()
+        sharded_ok, sharded_run = counted(
+            lambda: parallel.eddsa_verify_sharded(
+                one_card_mesh(EDDSA_SHARDS), pks_b, msgs_t, sigs_b))
+        sharded_s = time.perf_counter() - t_s
+        require_launched("sharded eddsa", (fk.K_FR.name,), sharded_run[0])
 
         # the plain path runs in three workers while this process checks
         t7 = time.perf_counter()
@@ -2183,7 +2331,9 @@ def eddsa_phase(n: int, block, device):
             ("scalar_mul", (tuple(c[:m].cpu() for c in pts), s_cpu))],
             chunksize=1)
         checks = {"block_all_true": len(block_ok) == len(block)
-                  and bool(block_ok.all())}
+                  and bool(block_ok.all()),
+                  "sharded_verdicts_expected": bool(np.array_equal(
+                      sharded_ok, np.arange(len(block)) % 8 != 0))}
         checks.update(eddsa_checks(batch, verdicts, rng))
         # the four edge scalars and HOST_ROWS random others
         rows = list(range(min(4, n))) + (
@@ -2215,11 +2365,13 @@ def eddsa_phase(n: int, block, device):
           "launches": launches,
           "k1_fr_sizes": size_rows(sizes[fk.K_FR.name]),
           "check_s": check_s, "plain_rows": m, "plain_s": plain_s,
-          **checks})
+          "sharded_shards": EDDSA_SHARDS, "sharded_verify_s": sharded_s,
+          "sharded_tampered": int((~sharded_ok).sum()),
+          "sharded_launches": sharded_run[0], **checks})
     if not all(checks.values()):
         raise SystemExit(f"EdDSA failed its checks: {checks}")
     emit({"phase": "eddsa_profile", "signatures": len(block), **profile})
-    return launches, sizes
+    return (launches, sizes), sharded_run
 
 
 def main(argv=None) -> int:
@@ -2286,6 +2438,7 @@ def run_phases(args, device, small: bool, batches: dict, waits: dict):
     lap("poseidon")
     b64_runs, _ = mpn_phase("mpn_b64", *waits["mpn_b64"],
                             batches["mpn_b64"], device)
+    sharded_run = b64_runs.pop("sharded")
     b64_run = merge_phases(*b64_runs.values())
     lap("mpn_b64")
     if small:
@@ -2295,10 +2448,12 @@ def run_phases(args, device, small: bool, batches: dict, waits: dict):
                                   batches["mpn_b256"], device)
     mpn_run = merge_phases(*mpn_runs.values())
     lap("mpn")
-    eddsa_run = eddsa_phase(256 if small else EDDSA_SIGS, mpn_txs, device)
+    eddsa_run, eddsa_sharded = eddsa_phase(256 if small else EDDSA_SIGS,
+                                           mpn_txs, device)
     lap("eddsa")
+    sharded_run = merge_phases(sharded_run, eddsa_sharded)
     launches, sizes = merge_phases(proof_run, keygen_run, b64_run, mpn_run,
-                                   poseidon_run, eddsa_run)
+                                   poseidon_run, eddsa_run, sharded_run)
     rows = kernel_phase(sizes, device)
     lap("kernel")
     # the MPN key's and first proof's launches at the replayed times
@@ -2325,7 +2480,8 @@ def run_phases(args, device, small: bool, batches: dict, waits: dict):
                                   "mpn_b64": b64_run[0][name],
                                   "mpn": mpn_run[0][name],
                                   "poseidon": poseidon_run[0][name],
-                                  "eddsa": eddsa_run[0][name]},
+                                  "eddsa": eddsa_run[0][name],
+                                  "sharded": sharded_run[0][name]},
             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms", "sizes")},

@@ -21,6 +21,9 @@ at a tiny size on the CPU.
   only (K3's name is not read as K2's, nor K6's as K3's); a profile's
   device time is summed by row and its busy time is the union of its
   events.
+- The presum over a host query's heavy rows gathered alone (the sharded
+  prover's `_presum_from_host`) equals the presum over the whole query
+  on the device, projective limb for limb and affine.
 - The `poseidon` and `eddsa` phases' checks at a tiny size on the plain
   path (a 4^2-leaf tree, 4 signatures): they pass, and fail once one limb
   of a tree level is wrong, a verdict is flipped or a multiply's scalar
@@ -45,7 +48,10 @@ from bazuka_tpu_torch.fields.limbs import fp_field, fr_field
 from bazuka_tpu_torch.groth16 import keygen, qap
 from bazuka_tpu_torch.groth16.prove import _pad_rows, compute_h_mont, create_proof
 from bazuka_tpu_torch.groth16.sparse import DeviceR1CS, encode_mont
+from bazuka_tpu_torch.fields.limbs import narrow_limbs, to_numpy
 from bazuka_tpu_torch.ops import jubjub_batch as jb
+from bazuka_tpu_torch.ops import msm_lm
+from bazuka_tpu_torch.parallel import prove as pprove
 
 # The shapes here are tiny: one intra-op thread per test process keeps
 # parallel test workers from oversubscribing the cores.
@@ -61,7 +67,9 @@ def test_port_imports_no_jax():
     assert {"bazuka_tpu_torch.mpn.circuits", "bazuka_tpu_torch.crypto.ed25519",
             "bazuka_tpu_torch.wallet.tx_builder",
             "bazuka_tpu_torch.ops.poseidon",
-            "bazuka_tpu_torch.ops.jubjub_batch"} <= set(mods)
+            "bazuka_tpu_torch.ops.jubjub_batch",
+            "bazuka_tpu_torch.parallel",
+            "bazuka_tpu_torch.parallel.prove"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
@@ -88,12 +96,35 @@ def test_port_imports_no_jax():
     assert "bazuka_tpu_torch.groth16.prove" in added
     assert "bazuka_tpu_torch.mpn.circuits" in added
     assert "bazuka_tpu_torch.ops.jubjub_batch" in added
+    assert "bazuka_tpu_torch.parallel" in added
+    assert "bazuka_tpu_torch.parallel.prove" in added
 
 
 def _run_smoke(cwd):
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def test_presum_over_host_gathered_rows_equals_device_query():
+    n = 64
+    pts = [bls.g1_mul(bls.G1_GEN, k + 1) for k in range(n)]
+    pts[9] = None  # an infinity row inside a heavy group
+    am, inf = msm_lm.points_to_am(pts, device="cpu")
+    scalars = [3 if i % 4 else 5 for i in range(n)]
+    plan = msm_lm.make_dedup_plan(
+        to_numpy(msm_lm.enc_scalars(scalars, "cpu")), threshold=8)
+    assert plan.active and plan.n_heavy_vals == 2
+    narrow = (narrow_limbs(am), inf.to(torch.uint8))
+    whole = msm_lm._presum(*narrow, plan, "g1", plan.hpos)
+    rows = plan.hpos
+    gathered = msm_lm._presum(narrow[0][rows], narrow[1][rows], plan, "g1",
+                              np.arange(plan.n_heavy_elems))
+    assert torch.equal(gathered, whole)
+    host = keygen._narrow(narrow)
+    got = pprove._presum_from_host(host, plan, "g1", "cpu")
+    want = msm_lm.presum_g1(*narrow, plan)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_chip_smoke_fails_without_cuda_or_package(tmp_path):

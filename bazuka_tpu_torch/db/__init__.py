@@ -1,6 +1,6 @@
 """String-keyed blob store with copy-on-write mirrors: the in-memory part
 of `bazuka_tpu/db/__init__.py` (the JAX package's sqlite3 `DiskKvStore`
-is left out).
+is not ported yet).
 
 The persistence model (reference: src/db/mod.rs):
   * `KvStore`: get / update(batch of WriteOps) / pairs(prefix) / mirror
@@ -9,11 +9,13 @@ The persistence model (reference: src/db/mod.rs):
     execution + rollback (reference: src/db/mod.rs:326-385)
 
 Values are raw `bytes`; the schema lives in `keys.py` and the typed
-codecs in the layers above.
+codecs in the layers above.  `checksum` digests the sorted pairs for
+state audit (reference: src/db/mod.rs:307-312).
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -52,6 +54,21 @@ class KvStore:
     def mirror(self) -> "RamMirrorKvStore":
         return RamMirrorKvStore(self)
 
+    def checksum(self) -> bytes:
+        """SHA3-256 over the sorted pairs (deterministic state audit)."""
+        h = hashlib.sha3_256()
+        for k, v in self.pairs(""):
+            kb = k.encode()
+            h.update(len(kb).to_bytes(8, "little"))
+            h.update(kb)
+            h.update(len(v).to_bytes(8, "little"))
+            h.update(v)
+        return h.digest()
+
+    # convenience
+    def contains(self, key: str) -> bool:
+        return self.get(key) is not None
+
 
 class RamKvStore(KvStore):
     def __init__(self):
@@ -79,7 +96,9 @@ class RamMirrorKvStore(KvStore):
     """Copy-on-write overlay fork over any base store.
 
     Reads fall through to the base unless overwritten; `to_ops` yields the
-    delta to commit.
+    delta to commit; `rollback_ops` yields the inverse ops that restore
+    the base (persisted per-block for chain rollback, reference:
+    src/blockchain/ops/apply_block.rs:181-186).
     """
 
     def __init__(self, base: KvStore):
@@ -117,3 +136,11 @@ class RamMirrorKvStore(KvStore):
             Put(k, v) if v is not None else Remove(k)
             for k, v in sorted(self._overwrite.items())
         ]
+
+    def rollback_ops(self) -> List[WriteOp]:
+        """Inverse ops restoring the base store's view of touched keys."""
+        out: List[WriteOp] = []
+        for k in sorted(self._overwrite):
+            old = self._base.get(k)
+            out.append(Put(k, old) if old is not None else Remove(k))
+        return out

@@ -1,7 +1,6 @@
 """MPN account: leaf = Struct[tx_nonce, withdraw_nonce, pub_x, pub_y,
 List4^t[Struct[token_id, balance]]] (reference: src/zk/mod.rs:59-114,
 src/zk/state/mod.rs:93-208).
-
 A copy of `bazuka_tpu/mpn/account.py`."""
 
 from __future__ import annotations
@@ -101,3 +100,20 @@ def set_mpn_account(
         _, d = mgr.set_data(db, cid, (index, 4, ind, 1), money.amount)
         size_diff += d
     return size_diff
+
+
+def get_mpn_accounts(
+    mgr: StateManager, db: KvStore, cid: str, page: int, page_size: int
+):
+    """Paged account listing (reference: src/zk/state/mod.rs:141-165)."""
+    from ..db import keys
+    from ..zk.state import loc_parse
+
+    indices = set()
+    for k, _ in db.pairs(keys.local_scalar_value_prefix(cid)):
+        loc = loc_parse(k.split("-")[3])
+        indices.add(loc[0])
+    out = []
+    for ind in sorted(indices)[page_size * page : page_size * (page + 1)]:
+        out.append((ind, get_mpn_account(mgr, db, cid, ind)))
+    return out

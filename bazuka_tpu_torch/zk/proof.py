@@ -1,9 +1,12 @@
-"""Proof and verifying-key wire types: the Groth16 part of
-`bazuka_tpu/zk/proof.py`, and the verifier-key enum and contract
-descriptors that `mpn/config.py` and `zk/state.py` use.
+"""Proof / verifier-key wire types and the proof-check dispatch.
 
-G1 points are (x, y, infinity) over Fp, G2 points ((x0,x1), (y0,y1),
-infinity) over Fp2 (reference: src/zk/groth16/mod.rs:19-38)."""
+Mirrors the reference's wire formats (reference: src/zk/groth16/mod.rs:19-38)
+with honest field-element integers instead of memory transmutes: G1 points
+are (x, y, infinity) over Fp, G2 points are ((x0,x1), (y0,y1), infinity)
+over Fp2.  `check_proof` dispatches Groth16 vs the `Dummy` test variant
+(reference: src/zk/mod.rs:157-193).
+A copy of `bazuka_tpu/zk/proof.py`.
+"""
 
 from __future__ import annotations
 
@@ -13,6 +16,9 @@ from typing import List, Optional, Tuple
 from ..utils import ser
 
 FP_BYTES = 48
+
+
+# ---------------------------------------------------------------- points
 
 
 @dataclass(frozen=True)
@@ -45,6 +51,9 @@ class G2Wire:
         x = (r.big(FP_BYTES), r.big(FP_BYTES))
         y = (r.big(FP_BYTES), r.big(FP_BYTES))
         return G2Wire(x, y, r.boolean())
+
+
+# ---------------------------------------------------------------- groth16
 
 
 @dataclass
@@ -93,8 +102,10 @@ class Groth16Proof:
 
     @staticmethod
     def read_from(r: ser.Reader) -> "Groth16Proof":
-        return Groth16Proof(G1Wire.read_from(r), G2Wire.read_from(r),
-                            G1Wire.read_from(r))
+        return Groth16Proof(G1Wire.read_from(r), G2Wire.read_from(r), G1Wire.read_from(r))
+
+
+# ---------------------------------------------------------------- enums
 
 
 @dataclass(frozen=True)
@@ -127,6 +138,38 @@ class ZkVerifierKey:
         if v == 1:
             return ZkVerifierKey.dummy()
         raise ValueError(f"bad verifier key tag {v}")
+
+
+@dataclass(frozen=True)
+class ZkProof:
+    kind: str  # "groth16" | "dummy"
+    proof: Optional[Groth16Proof] = None
+    ok: bool = True  # dummy verdict
+
+    @staticmethod
+    def groth16(proof: Groth16Proof) -> "ZkProof":
+        return ZkProof("groth16", proof)
+
+    @staticmethod
+    def dummy(ok: bool = True) -> "ZkProof":
+        return ZkProof("dummy", None, ok)
+
+    def write_to(self, w: ser.Writer):
+        if self.kind == "groth16":
+            w.variant(0)
+            self.proof.write_to(w)
+        else:
+            w.variant(1)
+            w.boolean(self.ok)
+
+    @staticmethod
+    def read_from(r: ser.Reader) -> "ZkProof":
+        v = r.variant()
+        if v == 0:
+            return ZkProof.groth16(Groth16Proof.read_from(r))
+        if v == 1:
+            return ZkProof.dummy(r.boolean())
+        raise ValueError(f"bad proof tag {v}")
 
 
 @dataclass(frozen=True)
@@ -172,3 +215,44 @@ def read_token_contract(r: ser.Reader) -> ZkTokenContract:
     from ..core.token import Token
 
     return ZkTokenContract(Token.read_from(r), r.seq(read_single_vk))
+
+
+# ---------------------------------------------------------------- dispatch
+
+# The reference compiles the Dummy VK/proof variants only under
+# #[cfg(test)] (src/zk/mod.rs:184-191) — on a real chain a dummy proof
+# must never verify.  Python has no cfg(test), so the test configs flip
+# this flag explicitly; it is off by default.
+_ALLOW_DUMMY = False
+
+
+def allow_dummy_proofs(flag: bool = True):
+    global _ALLOW_DUMMY
+    _ALLOW_DUMMY = flag
+
+
+def check_proof(
+    vk: ZkVerifierKey,
+    commitment: int,
+    prev_height: int,
+    prev_state: int,
+    aux_data: int,
+    next_state: int,
+    proof: ZkProof,
+) -> bool:
+    """Verify against the 5 public inputs
+    [commitment, height, prev_state, aux_data, next_state]
+    (reference: src/zk/mod.rs:157-193, src/zk/groth16/mod.rs:67-121)."""
+    if vk.kind == "groth16":
+        if proof.kind != "groth16":
+            return False
+        from ..groth16.verify import groth16_verify
+
+        return groth16_verify(
+            vk.vk,
+            [commitment, prev_height, prev_state, aux_data, next_state],
+            proof.proof,
+        )
+    if vk.kind == "dummy":
+        return _ALLOW_DUMMY and proof.kind == "dummy" and proof.ok
+    return False

@@ -118,6 +118,16 @@ def compress_default(model: ZkStateModel, hasher=PoseidonHasher) -> int:
     return out
 
 
+def model_is_valid(model: ZkStateModel, hasher=PoseidonHasher) -> bool:
+    if isinstance(model, Struct):
+        if len(model.field_types) > hasher.MAX_ARITY:
+            return False
+        return all(model_is_valid(f, hasher) for f in model.field_types)
+    if isinstance(model, ListModel):
+        return model_is_valid(model.item_type, hasher)
+    return True
+
+
 # ---------------------------------------------------------------- locators
 
 
@@ -449,3 +459,13 @@ class ZkStateBuilder:
 
     def prove(self, tree_loc: Tuple[int, ...], ind: int):
         return self.mgr.prove(self.db, self.cid, tuple(tree_loc), ind)
+
+
+def compress_state(
+    model: ZkStateModel, data: Dict[Tuple[int, ...], int], hasher=PoseidonHasher
+) -> ZkCompressedState:
+    """Compress full data pairs against a model (reference:
+    src/zk/mod.rs ZkStateModel::compress)."""
+    b = ZkStateBuilder(model, hasher)
+    b.batch_set({k: v for k, v in data.items()})
+    return b.compress()

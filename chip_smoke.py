@@ -143,7 +143,35 @@ Phases, each printed as one JSON line:
               printed), so that the mainnet path runs, the `sharded`
               four-step runs at 2^16 and 2^18, and phases 7 and 8 run at
               4^6 leaves, 2^16 batch hashes and 256 signatures
-  9. kernel   each kernel replayed at every size phases 4-8 (the
+  9. devchain the node's block production (bazuka_tpu/node/heartbeat.py:
+              248-276, without the network) on the --dev chain of the
+              port's `config/blockchain.py`: `get_dev_blockchain_config`
+              at mainnet's tree shapes (log4_tree 15, log4_token_tree 3)
+              and batches of 4 (mainnet's: 64 / 64 / 256) keys the
+              deposit, withdraw and update circuits on the card (K1, K6,
+              K7 must have run; synthesis and key seconds, constraints,
+              d and launches of each key, every VK point on the curve
+              and in the subgroup); a `KvStoreChain` over a `RamKvStore`
+              on that config, users b"D0".."D2" funded on L1 and the
+              validator b"DEV-VALIDATOR" registered; block 1: each user
+              deposits 1,000 Ziesha; block 2: user i pays user i + 1
+              (mod 3) 100 with a fee of 7 and D0-D1 withdraw 50 each
+              to L1; the validator's reward self-deposit rides each
+              deposit batch, the rewards are the node's (5 / 5 / 15 % of
+              the validator's); per block `prepare_works` gives three
+              works, each proven on the card under its key (K1's four
+              entries and K2-K5 must have run) by the worker b"WORKER"
+              and accepted by `pool.prove` (`MpnWork.verify`), while
+              the proof with A negated is refused; `ready`, `draft_block`
+              and `apply_block`, and the block with the update's proof
+              negated (signed again) refused by `apply_block` on a fork
+              with IncorrectZkProof; after block 2 the users' MPN and L1
+              balances, the validator's MPN balance, the worker's
+              rewards and the contract's height are those of the
+              construction, and each block's `db_checksum` equals a
+              second chain's, built on the three VKs passed through
+              `zk/wire.py`, that applies the same blocks
+ 10. kernel   each kernel replayed at every size phases 4-9 (the
               `sharded` runs included) launched it with (the NTT's stages also over rows of 2^11 and 2^12 of
               2^23 and 2^24 elements), on fresh random operands (plus the edge cases: 0 and
               p − 1 among K1's operands and the NTT's inputs, R − 1 in one
@@ -154,7 +182,8 @@ Phases, each printed as one JSON line:
               against its plain PyTorch
               version: bit-identical limbs, its time, the plain version's
               time and the card's bound, per size and averaged over the
-              phases' launches
+              phases' launches (the inversion's sizes against one plain
+              call over all their operands, whose time each row reports)
 Then the `mpn_launch_weighted` line (the replayed times weighted by the
 mainnet key's and first proof's launches), the `launch_weighted` line (K1 Fr
 weighted by phase 7's and phase 8's launches), the `{"kernels": [...]}`
@@ -172,6 +201,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -183,11 +213,17 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 
+from bazuka_tpu_torch.blockchain import KvStoreChain
+from bazuka_tpu_torch.blockchain import error as chain_errors
 from bazuka_tpu_torch.blockchain.chain import prover_commitment
+from bazuka_tpu_torch.config.blockchain import get_dev_blockchain_config
+from bazuka_tpu_torch.core.blocks import Block
+from bazuka_tpu_torch.core.money import Ratio
 from bazuka_tpu_torch.core.transaction import ContractId, Money
 from bazuka_tpu_torch.crypto import bls12_381 as bls
 from bazuka_tpu_torch.crypto import jubjub as jj
@@ -211,11 +247,21 @@ from bazuka_tpu_torch.groth16.r1cs import (
 )
 from bazuka_tpu_torch.groth16.verify import groth16_verify
 from bazuka_tpu_torch.mpn.chain_view import MpnChainView
-from bazuka_tpu_torch.mpn.circuits import UpdateCircuit, synthesize_circuit
+from bazuka_tpu_torch.mpn.circuits import (
+    DepositCircuit,
+    UpdateCircuit,
+    WithdrawCircuit,
+    synthesize_circuit,
+)
 from bazuka_tpu_torch.mpn.config import MpnConfig
 from bazuka_tpu_torch.mpn.deposit import deposit
-from bazuka_tpu_torch.mpn.transitions import UpdateTransition
+from bazuka_tpu_torch.mpn.transitions import (
+    DepositTransition,
+    UpdateTransition,
+    WithdrawTransition,
+)
 from bazuka_tpu_torch.mpn.update import update
+from bazuka_tpu_torch.mpn.workpool import MpnWorker, prepare_works
 from bazuka_tpu_torch import parallel
 from bazuka_tpu_torch.ops import _cuda
 from bazuka_tpu_torch.ops import curve_kernels as ck
@@ -234,8 +280,14 @@ from bazuka_tpu_torch.ops import weierstrass as wst
 from bazuka_tpu_torch.utils import ser
 from bazuka_tpu_torch.wallet.tx_builder import TxBuilder
 from bazuka_tpu_torch.zk.poseidon_host import params_for_width, poseidon
-from bazuka_tpu_torch.zk.proof import Groth16VerifyingKey
+from bazuka_tpu_torch.zk.proof import (
+    G1Wire,
+    Groth16VerifyingKey,
+    ZkProof,
+    ZkVerifierKey,
+)
 from bazuka_tpu_torch.zk.state import ZkCompressedState, ZkContract
+from bazuka_tpu_torch.zk.wire import decode_vk, encode_vk, validate_vk_points
 
 P = FR_MODULUS
 R_ORDER = bls.R
@@ -872,21 +924,32 @@ def random_field_limbs(F, n: int, gen, device):
     return x
 
 
+def timed_once(fn):
+    """(fn(), its milliseconds by CUDA events)."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
 def check_kernel(name, size, launches, run_kernel, run_plain, nbytes, imads,
-                 reps=20, timed=None, extra=None):
+                 reps=20, timed=None, extra=None, plain_ms=None):
     """One kernel at one launch size: bit-exact against the plain version,
     then timed (`timed`, where the checked call does more than the
-    kernel's launch, else `run_kernel`).  `launches` is how often the
-    proof launched this size; `extra` adds keys to the row."""
+    kernel's launch, else `run_kernel`).  The plain version's checked
+    call is its timed call (one call beside a kernel 100-10,000 times
+    faster), unless `plain_ms` gives the time of the call that computed
+    `run_plain()`'s result with other sizes'.  `launches` is how often
+    the proof launched this size; `extra` adds keys to the row."""
     out_k = run_kernel()
-    out_p = run_plain()
-    torch.cuda.synchronize()
+    out_p, ms_p = timed_once(run_plain)
     err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
     ms = cuda_ms(timed or run_kernel, reps)
-    # the checked call warmed the plain version up, and one timed call is
-    # enough beside a kernel 100-10,000 times faster (the plain inversion,
-    # a chain of PyTorch launches, takes 5-6 s at every size)
-    plain_ms = cuda_ms(run_plain, 1, warmup=False)
+    plain_ms = ms_p if plain_ms is None else plain_ms
     bound_ms, bound_by = bound(nbytes, imads)
     row = {"phase": "kernel", "name": name, "size": list(size),
            "launches": launches, "max_abs_err": float(err), "ms": ms,
@@ -1080,6 +1143,24 @@ def stress_lanes(acc, q, mask):
     return acc, q, mask
 
 
+def inversion_rows(sizes: dict, gen, device) -> list:
+    """K1's Fp inversion at each of `sizes` ({(n, 0): launches}) against
+    its plain version.  The plain inversion, a chain of about 460
+    launch-bound multiplies, takes 5-6 s at any of these sizes: one call
+    over every size's operands checks them all, and its time is each
+    row's plain_ms."""
+    F = fp_field()
+    inv = sorted(sizes.items())
+    xs = [inv_operands(n, gen, device) for (n, _), _ in inv]
+    want, plain_ms = timed_once(lambda: fk.mont_inv_plain(F, torch.cat(xs)))
+    return [check_kernel(
+        fk.K_INV.name, (n,), count, lambda: fk.mont_inv(F, x), lambda: w,
+        2 * n * F.n * 4, n * INV_FP_IMADS, reps=5, plain_ms=plain_ms,
+        extra={"plain_rows": want.shape[0]})
+        for ((n, _), count), x, w in zip(inv, xs, want.split(
+            [n for (n, _), _ in inv]))]
+
+
 def kernel_phase(sizes: dict, device):
     """Replay every kernel at each size `sizes` (from the driven paths)
     holds."""
@@ -1123,16 +1204,8 @@ def kernel_phase(sizes: dict, device):
         del x, tw, work
     rows[fk.K_NTT.name] = summarize(per)
 
-    F = fp_field()
-    per = []
-    for (n, _), count in sorted(sizes[fk.K_INV.name].items()):
-        x = inv_operands(n, gen, device)
-        per.append(check_kernel(
-            fk.K_INV.name, (n,), count,
-            lambda: fk.mont_inv(F, x), lambda: fk.mont_inv_plain(F, x),
-            2 * n * F.n * 4, n * INV_FP_IMADS,
-            reps=5))
-    rows[fk.K_INV.name] = summarize(per)
+    rows[fk.K_INV.name] = summarize(inversion_rows(
+        sizes[fk.K_INV.name], gen, device))
 
     for kind in ("g1", "g2"):
         kerns = CURVE_KERNELS[kind]
@@ -2374,6 +2447,369 @@ def eddsa_phase(n: int, block, device):
     return (launches, sizes), sharded_run
 
 
+# ------------------------------------------------------------ the dev chain
+
+
+# The `devchain` phase: the node's block production
+# (bazuka_tpu/node/heartbeat.py:248-276, without the network) on the --dev
+# chain of config/blockchain.py's `get_dev_blockchain_config`, at
+# mainnet's tree shapes (log4_tree 15, log4_token_tree 3) and batches of
+# 4^DEV_LOG4_BATCH (mainnet's are 64 / 64 / 256).  Batches of 16
+# (DEV_LOG4_BATCH = 2) took the phase 163-179 s on one H100 and would
+# bring the whole run to about its 1,200 s limit on the slowest host
+# measured (PERF.md §5); batches of 4 leave it room.  Users b"D0".. fill
+# a batch but for the slot of the validator's reward self-deposit: each
+# holds DEV_L1_FUNDS on L1 and deposits DEV_DEPOSIT in block 1; in block 2
+# user i pays user i + 1 DEV_PAY with a fee of DEV_FEE, and the first half
+# of them withdraw DEV_WITHDRAW to their L1 address.  All in Ziesha.
+DEV_LOG4_TREE, DEV_LOG4_TOKEN_TREE = 15, 3
+DEV_LOG4_BATCH = 1
+DEV_L1_FUNDS, DEV_DEPOSIT, DEV_PAY, DEV_FEE, DEV_WITHDRAW = (
+    10_000, 1_000, 100, 7, 50)
+DEV_CIRCUITS = {"deposit": (DepositCircuit, DepositTransition),
+                "withdraw": (WithdrawCircuit, WithdrawTransition),
+                "update": (UpdateCircuit, UpdateTransition)}
+# The port's names the dev chain's flow uses; the tests hand `DevChain`
+# the JAX package's under the same names.
+PORT = types.SimpleNamespace(
+    KvStoreChain=KvStoreChain, RamKvStore=RamKvStore, TxBuilder=TxBuilder,
+    Money=Money, ContractId=ContractId, Ratio=Ratio, MpnWorker=MpnWorker,
+    prepare_works=prepare_works, ser=ser, Block=Block, errors=chain_errors)
+
+
+class DevChain:
+    """The validator's side of the dev chain's blocks: a `KvStoreChain`
+    over a `RamKvStore` on `conf`, users b"D0".. funded on L1 (as
+    tests/test_mpn_pipeline.py funds its validator) and the validator
+    b"DEV-VALIDATOR" registered as a staker (the dev genesis has none; no
+    one delegates to it, so it is paid the whole reward), then
+    per block: `prepare_works` with the node's rewards (the validator's
+    reward, 5 / 5 / 15 % of it per deposit / withdraw / update batch) and
+    one registered worker b"WORKER"; the proofs handed to `pool.prove` by
+    the caller; `ready`, `draft_block`, `apply_block`.  `lib` names the
+    package (PORT, or the JAX package's names in the tests)."""
+
+    def __init__(self, conf, lib=PORT):
+        self.lib, self.conf = lib, conf
+        self.cid = conf.mpn_config.mpn_contract_id
+        self.chain = lib.KvStoreChain(lib.RamKvStore(), conf)
+        self.validator = lib.TxBuilder(b"DEV-VALIDATOR")
+        self.worker = lib.TxBuilder(b"WORKER")
+        n = (1 << (2 * conf.mpn_config.log4_deposit_batch_size)) - 1
+        self.users = [lib.TxBuilder(b"D%d" % i) for i in range(n)]
+        self.withdrawers = self.users[:(n + 1) // 2]
+        self.rewards = []
+        zsh = lib.ContractId.ZIESHA
+        for u in self.users:
+            self.chain._set_balance(u.get_address(), zsh, DEV_L1_FUNDS)
+        v = self.validator.get_address()
+        self.chain.apply_tx(self.validator.register_validator(
+            "", lib.Ratio(12), lib.Money.ziesha(0),
+            self.chain.get_nonce(v) + 1).tx)
+
+    def mpn_txs(self, block: int):
+        """(deposits, withdraws, transfers) of block 1 or 2."""
+        zsh, chain, users = self.lib.Money.ziesha, self.chain, self.users
+        if block == 1:
+            return [u.deposit_mpn(
+                "", self.cid, u.get_mpn_address(),
+                chain.get_deposit_nonce(u.get_address(), self.cid) + 1,
+                zsh(DEV_DEPOSIT), zsh(0)) for u in users], [], []
+        acc = {str(u.get_mpn_address()):
+               chain.get_mpn_account(u.get_mpn_address()) for u in users}
+        n = len(users)
+        withdraws = [u.withdraw_mpn(
+            "", self.cid, acc[str(u.get_mpn_address())].withdraw_nonce + 1,
+            zsh(DEV_WITHDRAW), zsh(0), u.get_address())
+            for u in self.withdrawers]
+        pays = [users[i].create_mpn_transaction(
+            users[(i + 1) % n].get_mpn_address(), zsh(DEV_PAY), zsh(DEV_FEE),
+            acc[str(users[i].get_mpn_address())].tx_nonce + 1)
+            for i in range(n)]
+        return [], withdraws, pays
+
+    def prepare(self, block: int):
+        v = self.validator.get_address()
+        reward = self.chain.min_validator_reward(v)
+        self.rewards.append(reward)
+        return self.lib.prepare_works(
+            self.conf.mpn_config, self.chain,
+            {"worker": self.lib.MpnWorker(self.worker.get_address())},
+            *self.mpn_txs(block), reward, reward // 100 * 5,
+            reward // 100 * 5, reward // 100 * 15,
+            self.chain.get_deposit_nonce(v, self.cid),
+            self.validator, self.validator)
+
+    def draft(self, pool, block: int):
+        """(the pool's update transaction, the drafted block)."""
+        td = pool.ready(self.validator, self.chain.get_nonce(
+            self.validator.get_address()) + 1)
+        if td is None:
+            raise SystemExit("the work pool is not ready")
+        blk = self.chain.draft_block(block * self.conf.slot_duration, [td],
+                                     self.validator)
+        if blk is None or len(blk.body) != 1:
+            raise SystemExit("the dev chain drafted no block of the "
+                             "pool's update")
+        return td, blk
+
+    def tampered_block(self, blk, proof):
+        """`blk` with the last update's proof replaced by `proof`, signed
+        again and its merkle root recomputed: only the proof is wrong."""
+        lib = self.lib
+        bad = lib.ser.loads(lib.Block, lib.ser.dumps(blk))
+        tx = bad.body[0]
+        tx.data.updates[-1].proof = proof
+        self.validator.sign_tx(tx)
+        bad.header.block_root = bad.merkle_tree().root()
+        return bad
+
+    def refuses(self, blk) -> bool:
+        """True iff applying `blk` on a fork raises IncorrectZkProof."""
+        try:
+            self.chain.isolated(lambda c: c.apply_block(blk))
+        except self.lib.errors.IncorrectZkProof:
+            return True
+        return False
+
+    def expected(self) -> dict:
+        """Each user's MPN and L1 Ziesha, the validator's MPN Ziesha, the
+        worker's L1 rewards and the contract's height that two blocks
+        give by construction."""
+        w = {str(u.get_address()) for u in self.withdrawers}
+        paid = DEV_WITHDRAW
+        return {
+            "mpn": [DEV_DEPOSIT - DEV_FEE
+                    - (paid if str(u.get_address()) in w else 0)
+                    for u in self.users],
+            "l1": [DEV_L1_FUNDS - DEV_DEPOSIT
+                   + (paid if str(u.get_address()) in w else 0)
+                   for u in self.users],
+            "validator_mpn": sum(r - 2 * (r // 100 * 5) - r // 100 * 15
+                                 for r in self.rewards),
+            "worker_l1": sum(2 * (r // 100 * 5) + r // 100 * 15
+                             for r in self.rewards),
+            "contract_height": 1 + len(self.rewards)}
+
+    def state(self) -> dict:
+        """The same values as the chain reads them."""
+        chain, zsh = self.chain, self.lib.ContractId.ZIESHA
+
+        def mpn(b):
+            acc = chain.get_mpn_account(b.get_mpn_address())
+            return sum(m.amount for m in acc.tokens.values()
+                       if m.token_id == zsh)
+        return {
+            "mpn": [mpn(u) for u in self.users],
+            "l1": [chain.get_balance(u.get_address(), zsh)
+                   for u in self.users],
+            "validator_mpn": mpn(self.validator),
+            "worker_l1": chain.get_balance(self.worker.get_address(), zsh),
+            "contract_height":
+            chain.get_contract_account(self.cid).height}
+
+
+def work_circuit(work, prover):
+    """The circuit of an `MpnWork` that the prover `prover` (an address)
+    proves: its commitment `prover_commitment(prover, work.reward)`, the
+    work's public inputs, its transitions padded with the kind's null
+    transition, and for the update the fee token Ziesha (the reference's
+    external prover builds it; the JAX package has no such function).
+    Returns (circuit, [commitment, height, state, aux_data, next_state])."""
+    mc, pi = work.config, work.public_inputs
+    cls, transition = DEV_CIRCUITS[work.data_kind]
+    log4_batch = {"deposit": mc.log4_deposit_batch_size,
+                  "withdraw": mc.log4_withdraw_batch_size,
+                  "update": mc.log4_update_batch_size}[work.data_kind]
+    inputs = [prover_commitment(prover, work.reward), *pi.as_list()]
+    pad = (1 << (2 * log4_batch)) - len(work.transitions)
+    extra = ({"fee_token": ContractId.ZIESHA.scalar}
+             if work.data_kind == "update" else {})
+    circuit = cls(mc.log4_tree_size, mc.log4_token_tree_size, log4_batch,
+                  *inputs, transitions=list(work.transitions) + [
+                      transition.null(mc.log4_tree_size,
+                                      mc.log4_token_tree_size)
+                      for _ in range(pad)], **extra)
+    return circuit, inputs
+
+
+def negated_a(proof):
+    """A Groth16 `ZkProof` with A moved to −A (a dummy one: a dummy proof
+    that fails)."""
+    if proof.kind == "dummy":
+        return ZkProof.dummy(False)
+    p = proof.proof
+    a = G1Wire(p.a.x, (-p.a.y) % bls.P, p.a.infinity)
+    return ZkProof.groth16(dataclasses.replace(p, a=a))
+
+
+def wire_copy(conf):
+    """A copy of the dev chain's config whose three VKs went through the
+    wire codec (`encode_vk`, `decode_vk`), in its MPN config and in the
+    genesis's contract, and whether the contract id (a hash of the
+    genesis transaction's bytes, the VKs among them) came out equal."""
+    c = copy.deepcopy(conf)
+    contract = c.genesis.body[1].data.contract
+    for name, funcs in (("deposit", contract.deposit_functions),
+                        ("withdraw", contract.withdraw_functions),
+                        ("update", contract.functions)):
+        vk = ZkVerifierKey.groth16(decode_vk(encode_vk(
+            getattr(c.mpn_config, f"{name}_vk").vk)))
+        setattr(c.mpn_config, f"{name}_vk", vk)
+        funcs[0] = dataclasses.replace(funcs[0], verifier_key=vk)
+    same_id = (ContractId.from_tx(c.genesis.body[1])
+               == conf.mpn_config.mpn_contract_id)
+    return c, same_id
+
+
+def replayed_checksums(conf, blocks, lib=PORT) -> list:
+    """`db_checksum` after each of `blocks` applied to a second dev chain
+    on `conf` with the same set-up: the host's recomputation."""
+    dc = DevChain(conf, lib)
+    out = []
+    for blk in blocks:
+        dc.chain.apply_block(blk)
+        out.append(dc.chain.db_checksum())
+    return out
+
+
+class KeyLaunches(dict):
+    """The `keys` dict of `get_dev_blockchain_config` that also keeps each
+    key's launch counts, read when the key is stored (the counts are set
+    to 0 before the first key)."""
+
+    def __init__(self):
+        super().__init__()
+        self.launches, self._last = {}, None
+
+    def __setitem__(self, name, value):
+        torch.cuda.synchronize()
+        now = _cuda.counts()
+        last = self._last or {k: 0 for k in now}
+        self.launches[name] = {k: now[k] - last[k] for k in now}
+        self._last = now
+        super().__setitem__(name, value)
+
+
+def devchain_phase(log4_batch: int, device):
+    """The `devchain` phase: the dev chain's three keys made on the card
+    by `get_dev_blockchain_config`, then two blocks (`DevChain`), each
+    work proven on the card under its key and accepted by `pool.prove`
+    (`MpnWork.verify`), a proof with A negated refused by the pool and,
+    inside the update of a block signed again, by `apply_block` on a fork
+    (IncorrectZkProof); after block 2 the balances, rewards and contract
+    height of the construction, and each block's `db_checksum` equal to a
+    second chain's on the VKs passed through the wire codec.  Returns
+    (launch counts, sizes) of the keys and the proofs."""
+    t0 = time.perf_counter()
+    card = nvidia_smi_line()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    keys = KeyLaunches()
+    conf, key_run = counted(lambda: get_dev_blockchain_config(
+        DEV_LOG4_TREE, DEV_LOG4_TOKEN_TREE, log4_batch, device=device,
+        keys=keys))
+    for name, k in keys.items():
+        vk = k["params"].vk
+        invalid = validate_vk_points(vk)
+        emit({"phase": "devchain_key", "circuit": name, "nvidia_smi": card,
+              "log4": [DEV_LOG4_TREE, DEV_LOG4_TOKEN_TREE, log4_batch],
+              "n_constraints": k["n_constraints"],
+              "d": qap.domain_size(k["n_constraints"], len(vk.ic)),
+              "synthesis_s": k["synthesis_s"], "keygen_s": k["keygen_s"],
+              "stage_s": k["stage_s"], "launches": keys.launches[name],
+              "vk_points_valid": invalid is None})
+        if invalid is not None:
+            raise SystemExit(f"the dev {name} VK: {invalid}")
+    emit({"phase": "devchain_keys", "nvidia_smi": card,
+          "seconds": time.perf_counter() - t0,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": key_run[0]})
+    require_launched("dev chain's keys", KEYGEN_KERNELS, key_run[0])
+
+    dc = DevChain(conf)
+    prover = dc.worker.get_address()
+    runs, blocks, checksums, checks = [key_run], [], [], {}
+    for block in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        pool = dc.prepare(block)
+        prepare_s = time.perf_counter() - t1
+        works, proofs = [], {}
+        for wid, work in sorted(pool.works.items()):
+            t2 = time.perf_counter()
+            circuit, inputs = work_circuit(work, prover)
+            cs = synthesize_circuit(circuit)
+            t3 = time.perf_counter()
+            rec = {}
+            proof, run = counted(lambda: prove.create_proof(
+                keys[work.data_kind]["params"], cs, device=device,
+                record=rec))
+            t4 = time.perf_counter()
+            runs.append(run)
+            proofs[wid] = ZkProof.groth16(proof)
+            # `pool.prove` checks the proof by `MpnWork.verify`: one
+            # pairing check on the host, timed
+            verdicts = {"pool_refuses_negated_a": not pool.prove(
+                wid, prover, negated_a(proofs[wid]))}
+            t5 = time.perf_counter()
+            verdicts["verify_and_pool_accepts"] = pool.prove(
+                wid, prover, proofs[wid])
+            t6 = time.perf_counter()
+            works.append({"work": wid, "kind": work.data_kind,
+                          "transitions": len(work.transitions),
+                          "n_constraints": cs.n_constraints,
+                          "synthesis_s": t3 - t2, "proof_s": t4 - t3,
+                          "stage_s": rec["seconds"], "launches": run[0],
+                          "verify_s": t6 - t5, **verdicts})
+            checks.update({f"block{block}_{work.data_kind}_{k}": v
+                           for k, v in verdicts.items()})
+            del cs, circuit
+        t7 = time.perf_counter()
+        td, blk = dc.draft(pool, block)
+        t8 = time.perf_counter()
+        checks[f"block{block}_negated_a_refused_by_apply_block"] = (
+            dc.refuses(dc.tampered_block(blk, negated_a(proofs[
+                max(proofs)]))))
+        t9 = time.perf_counter()
+        dc.chain.apply_block(blk)
+        t10 = time.perf_counter()
+        blocks.append(blk)
+        checksums.append(dc.chain.db_checksum())
+        checks[f"block{block}_applied"] = dc.chain.get_height() == block + 1
+        emit({"phase": "devchain_block", "nvidia_smi": card, "block": block,
+              "deposits": len(pool.works[0].transitions),
+              "withdraws": len(pool.works[1].transitions),
+              "transfers": len(pool.works[2].transitions),
+              "prepare_works_s": prepare_s, "works": works,
+              "draft_block_s": t8 - t7, "refused_block_s": t9 - t8,
+              "apply_block_s": t10 - t9,
+              "block_hash": blk.header.hash().hex(),
+              "db_checksum": checksums[-1],
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "max_memory_requested": peak_requested(),
+              "host_peak_rss": host_peak_rss()})
+    state, expected = dc.state(), dc.expected()
+    checks.update({f"state_{k}": state[k] == v for k, v in expected.items()})
+    t11 = time.perf_counter()
+    conf2, same_id = wire_copy(conf)
+    checks["vk_wire_round_trip_keeps_contract_id"] = same_id
+    checks["db_checksum_equals_host_recomputation"] = (
+        replayed_checksums(conf2, blocks) == checksums)
+    proof_runs = merge_phases(*runs[1:])
+    emit({"phase": "devchain", "nvidia_smi": card, "state": state,
+          "expected": expected,
+          "recompute_s": time.perf_counter() - t11,
+          "total_s": time.perf_counter() - t0,
+          "launches": merge_phases(*runs)[0], **checks})
+    if not all(checks.values()):
+        raise SystemExit(f"the dev chain failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    require_launched("dev chain's proofs", PROOF_KERNELS, proof_runs[0])
+    return merge_phases(*runs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-d", type=int, default=22,
@@ -2451,9 +2887,12 @@ def run_phases(args, device, small: bool, batches: dict, waits: dict):
     eddsa_run, eddsa_sharded = eddsa_phase(256 if small else EDDSA_SIGS,
                                            mpn_txs, device)
     lap("eddsa")
+    devchain_run = devchain_phase(DEV_LOG4_BATCH, device)
+    lap("devchain")
     sharded_run = merge_phases(sharded_run, eddsa_sharded)
     launches, sizes = merge_phases(proof_run, keygen_run, b64_run, mpn_run,
-                                   poseidon_run, eddsa_run, sharded_run)
+                                   poseidon_run, eddsa_run, sharded_run,
+                                   devchain_run)
     rows = kernel_phase(sizes, device)
     lap("kernel")
     # the MPN key's and first proof's launches at the replayed times
@@ -2481,7 +2920,8 @@ def run_phases(args, device, small: bool, batches: dict, waits: dict):
                                   "mpn": mpn_run[0][name],
                                   "poseidon": poseidon_run[0][name],
                                   "eddsa": eddsa_run[0][name],
-                                  "sharded": sharded_run[0][name]},
+                                  "sharded": sharded_run[0][name],
+                                  "devchain": devchain_run[0][name]},
             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms", "sizes")},

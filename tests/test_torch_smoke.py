@@ -2,7 +2,8 @@
 at a tiny size on the CPU.
 
 - Importing every `bazuka_tpu_torch` module (the MPN circuits, witness
-  generators and wallet among them), `chip_smoke` and `kernel_ab` adds no
+  generators and wallet, the chain, its configs, the work pool and the
+  VK codec among them), `chip_smoke` and `kernel_ab` adds no
   `jax`, no `bazuka_tpu` and no `cryptography` or `nacl` module to
   `sys.modules`, nor does an Ed25519 signature and its check (compared
   before and after, since a host may pre-import jax).
@@ -28,6 +29,12 @@ at a tiny size on the CPU.
   path (a 4^2-leaf tree, 4 signatures): they pass, and fail once one limb
   of a tree level is wrong, a verdict is flipped or a multiply's scalar
   is another.
+- The `devchain` phase's flow and checks on the test chain at log4
+  (3, 1, 1) with dummy proofs: they pass, and fail once a block is
+  missing or altered, a VK is another or a proof's A is negated.
+- The replay's inversion rows hold each size's kernel output to its own
+  slice of one plain call over every size's operands, and fail when it
+  differs.
 """
 
 import json
@@ -36,8 +43,10 @@ import pkgutil
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
+import pytest
 import torch
 
 import bazuka_tpu_torch
@@ -69,7 +78,10 @@ def test_port_imports_no_jax():
             "bazuka_tpu_torch.ops.poseidon",
             "bazuka_tpu_torch.ops.jubjub_batch",
             "bazuka_tpu_torch.parallel",
-            "bazuka_tpu_torch.parallel.prove"} <= set(mods)
+            "bazuka_tpu_torch.parallel.prove",
+            "bazuka_tpu_torch.blockchain", "bazuka_tpu_torch.config",
+            "bazuka_tpu_torch.mpn.workpool",
+            "bazuka_tpu_torch.zk.wire"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
@@ -98,6 +110,9 @@ def test_port_imports_no_jax():
     assert "bazuka_tpu_torch.ops.jubjub_batch" in added
     assert "bazuka_tpu_torch.parallel" in added
     assert "bazuka_tpu_torch.parallel.prove" in added
+    for m in ("blockchain", "blockchain.chain", "config",
+              "config.blockchain", "mpn.workpool", "zk.wire"):
+        assert f"bazuka_tpu_torch.{m}" in added
 
 
 def _run_smoke(cwd):
@@ -324,3 +339,117 @@ def test_mpn_worker_sends_its_circuit_when_asked():
         assert w["inputs"] == inputs and len(w["txs"]) == 4
         assert w["cs"].n_constraints > 0
         assert check()["satisfied"]
+
+
+def test_devchain_checks_at_tiny_size():
+    """The `devchain` phase's flow and checks (`chip_smoke.DevChain`,
+    `replayed_checksums`, `wire_copy`, `negated_a`) on the test chain at
+    log4 (3, 1, 1) with dummy proofs: they pass, and fail once a block is
+    missing or altered, a VK is another, or a proof's A is negated."""
+    from bazuka_tpu_torch.config import blockchain as cfg
+    from bazuka_tpu_torch.core.transaction import ContractId
+    from bazuka_tpu_torch.groth16.verify import groth16_verify
+    from bazuka_tpu_torch.utils import ser
+    from bazuka_tpu_torch.zk import proof as zkproof
+    from bazuka_tpu_torch.zk.proof import Groth16Proof, ZkProof
+
+    saved = zkproof._ALLOW_DUMMY
+    try:
+        conf = cfg.get_test_blockchain_config()
+        for kind in ("deposit", "withdraw", "update"):
+            setattr(conf.mpn_config, f"mpn_num_{kind}_batches", 1)
+        dc = chip_smoke.DevChain(conf)
+        prover = dc.worker.get_address()
+        blocks, sums = [], []
+        for block in (1, 2):
+            pool = dc.prepare(block)
+            for wid in sorted(pool.works):
+                assert not pool.prove(wid, prover, chip_smoke.negated_a(
+                    ZkProof.dummy(True)))
+                assert pool.prove(wid, prover, ZkProof.dummy(True))
+            _, blk = dc.draft(pool, block)
+            assert dc.refuses(dc.tampered_block(blk, ZkProof.dummy(False)))
+            assert not dc.refuses(blk)
+            dc.chain.apply_block(blk)
+            blocks.append(blk)
+            sums.append(dc.chain.db_checksum())
+            if block == 1:
+                assert dc.state() != dc.expected()
+        assert dc.state() == dc.expected()
+        assert chip_smoke.replayed_checksums(conf, blocks) == sums
+        assert chip_smoke.replayed_checksums(conf, blocks[:1]) == sums[:1]
+        other = ser.loads(type(blocks[1]), ser.dumps(blocks[1]))
+        other.header.proof_of_stake.timestamp += conf.slot_duration
+        assert chip_smoke.replayed_checksums(conf, [blocks[0], other]) != sums
+
+        vks = cfg.load_mainnet_vks()
+        tx = cfg.get_mpn_contract_tx(3, 1, 1, 1, vks["deposit"],
+                                     vks["withdraw"], vks["update"])
+        conf.genesis.body[1] = tx
+        conf.mpn_config.mpn_contract_id = ContractId.from_tx(tx)
+        for kind in ("deposit", "withdraw", "update"):
+            setattr(conf.mpn_config, f"{kind}_vk", vks[kind])
+        copied, same_id = chip_smoke.wire_copy(conf)
+        assert same_id and copied.mpn_config.update_vk == vks["update"]
+        conf.mpn_config.deposit_vk = vks["withdraw"]
+        assert not chip_smoke.wire_copy(conf)[1]
+    finally:
+        zkproof.allow_dummy_proofs(saved)
+
+    params = keygen.load_parameters(chip_smoke.TOY_KEY, device="cpu")
+    _, z = chip_smoke.toy_circuit()
+    proof = ser.loads(Groth16Proof, bytes.fromhex(chip_smoke.TOY_PROOF_HEX))
+    assert groth16_verify(params.vk, [z], proof)
+    moved = chip_smoke.negated_a(ZkProof.groth16(proof))
+    assert moved.proof.b == proof.b and moved.proof.a.x == proof.a.x
+    assert not groth16_verify(params.vk, [z], moved.proof)
+
+
+def test_inversion_replay_checks_each_size_against_one_plain_call(
+        monkeypatch):
+    """The replay's inversion rows: one plain call over every size's
+    operands, each size's kernel output held to its own slice of it."""
+    from bazuka_tpu_torch.ops import field_kernel as fk
+
+    class Event:
+        def __init__(self, **_):
+            self.t = 0.0
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return (other.t - self.t) * 1e3
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    calls, memo = [], {}
+    plain = fk.mont_inv_plain
+
+    def kernel(shift):
+        # the plain inversion of a + shift, once per operand (the replay
+        # calls the kernel several times to time it)
+        def run(F, a):
+            key = (shift, a.numpy().tobytes())
+            if key not in memo:
+                memo[key] = plain(F, a + shift)
+            return memo[key]
+        return run
+
+    monkeypatch.setattr(fk, "mont_inv_plain",
+                        lambda F, a: calls.append(a.shape[0]) or plain(F, a))
+    monkeypatch.setattr(fk, "mont_inv", kernel(0))
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    sizes = {(1, 0): 4, (6, 0): 1}
+    rows = chip_smoke.inversion_rows(sizes, gen, "cpu")
+    assert calls == [7]
+    assert [r["size"] for r in rows] == [[1], [6]]
+    assert all(r["max_abs_err"] == 0 and r["plain_rows"] == 7
+               and r["plain_ms"] == rows[0]["plain_ms"] for r in rows)
+    monkeypatch.setattr(fk, "mont_inv", kernel(1))
+    with pytest.raises(SystemExit):
+        chip_smoke.inversion_rows(sizes, gen, "cpu")

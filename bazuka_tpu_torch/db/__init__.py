@@ -1,16 +1,17 @@
-"""String-keyed blob store with copy-on-write mirrors: the in-memory part
-of `bazuka_tpu/db/__init__.py` (the JAX package's sqlite3 `DiskKvStore`
-is not ported yet).
+"""String-keyed blob store with copy-on-write mirrors.
 
-The persistence model (reference: src/db/mod.rs):
+The whole framework's persistence model (reference: src/db/mod.rs):
   * `KvStore`: get / update(batch of WriteOps) / pairs(prefix) / mirror
   * `RamKvStore`: in-memory sorted map
+  * `DiskKvStore`: durable store (sqlite3-backed; replaces the
+    reference's LevelDB — any embedded KV qualifies, SURVEY.md §2.2)
   * `RamMirrorKvStore`: overlay fork used pervasively for speculative
     execution + rollback (reference: src/db/mod.rs:326-385)
 
 Values are raw `bytes`; the schema lives in `keys.py` and the typed
 codecs in the layers above.  `checksum` digests the sorted pairs for
 state audit (reference: src/db/mod.rs:307-312).
+A copy of `bazuka_tpu/db/__init__.py`.
 """
 
 from __future__ import annotations
@@ -90,6 +91,48 @@ class RamKvStore(KvStore):
         return sorted(
             (k, v) for k, v in self._map.items() if k.startswith(prefix)
         )
+
+
+class DiskKvStore(KvStore):
+    """sqlite3-backed durable store (stands in for the reference's LevelDB)."""
+
+    def __init__(self, path: str):
+        import sqlite3
+
+        self._conn = sqlite3.connect(path)
+        self._conn.execute(
+            "CREATE TABLE IF NOT EXISTS kv (k TEXT PRIMARY KEY, v BLOB)"
+        )
+        self._conn.commit()
+
+    def get(self, key: str) -> Optional[bytes]:
+        row = self._conn.execute("SELECT v FROM kv WHERE k = ?", (key,)).fetchone()
+        return bytes(row[0]) if row else None
+
+    def update(self, ops: Iterable[WriteOp]) -> None:
+        cur = self._conn.cursor()
+        for op in ops:
+            if isinstance(op, Put):
+                cur.execute(
+                    "INSERT INTO kv (k, v) VALUES (?, ?) "
+                    "ON CONFLICT(k) DO UPDATE SET v = excluded.v",
+                    (op.key, op.value),
+                )
+            elif isinstance(op, Remove):
+                cur.execute("DELETE FROM kv WHERE k = ?", (op.key,))
+            else:
+                raise KvStoreError(f"bad write op {op!r}")
+        self._conn.commit()
+
+    def pairs(self, prefix: str = "") -> List[Tuple[str, bytes]]:
+        rows = self._conn.execute(
+            "SELECT k, v FROM kv WHERE k >= ? AND k < ? ORDER BY k",
+            (prefix, prefix + "￿") if prefix else ("", "￿"),
+        ).fetchall()
+        return [(k, bytes(v)) for k, v in rows]
+
+    def close(self):
+        self._conn.close()
 
 
 class RamMirrorKvStore(KvStore):

@@ -1,7 +1,7 @@
 """TxBuilder: key management + construction/signing of every tx type
 (reference: src/wallet/tx_builder.rs).
-A copy of `bazuka_tpu/wallet/tx_builder.py` without `claim_validator`,
-which needs the node (not ported yet)."""
+A copy of `bazuka_tpu/wallet/tx_builder.py`.
+"""
 
 from __future__ import annotations
 
@@ -130,6 +130,16 @@ class TxBuilder:
                 nonce,
             )
         )
+
+    def claim_validator(self, timestamp: int, proof, node):
+        """Signed claim to the current slot (reference: tx_builder.rs:187-203)."""
+        from ..node.context import ValidatorClaim
+
+        claim = ValidatorClaim(
+            timestamp=timestamp, address=self.address, proof=proof, node=node
+        )
+        claim.sig = Ed25519.sign(self._sk, claim.signing_bytes())
+        return claim
 
     def create_contract(
         self, memo: str, contract: ZkContract, initial_state: dict,

@@ -171,7 +171,42 @@ Phases, each printed as one JSON line:
               construction, and each block's `db_checksum` equals a
               second chain's, built on the three VKs passed through
               `zk/wire.py`, that applies the same blocks
- 10. kernel   each kernel replayed at every size phases 4-9 (the
+ 10. node     the node itself (bazuka_tpu_torch/node/), two of its
+              nodes on the `devchain` phase's config with `check_validator`
+              on (the peer checks the block's VRF proof, as on mainnet),
+              wired through the port's `Simulation`, with the simulator's
+              heartbeats and automatic block generation: the validator,
+              its chain on a `DiskKvStore` in a temporary directory (as
+              `cli node start` opens it) and its wallets from a
+              `WalletCollection` of a pinned mnemonic saved to a wallet
+              file and opened from it, and a peer on a `RamKvStore`; both
+              chains set up as the `devchain` phase's (users b"D0".."D2"
+              funded, the validator registered) and the validator's
+              self-delegation, so that the VRF elects it; both clocks
+              skewed alike so that the nodes start NODE_LEAD_S seconds
+              before a slot.  The validator is also served over HTTP on
+              127.0.0.1 (`serve_http`), and the worker b"WORKER" talks to
+              it over real sockets (`http_sender`): it registers
+              (`POST /bincode/mpn/worker`), sends the users' block-1
+              deposits (`BazukaClient.transact`) before the validator's
+              claim of the slot, asks for work (`GET /bincode/mpn/work`;
+              its public inputs must equal the pool's; the pool hands a
+              worker two works, so the third it takes from the pool in
+              process, as it takes every work's transitions), proves each
+              of the three works on the card under the `devchain` key of
+              its kind (K1's four entries and K2-K5 must have run), and
+              posts the proofs (`POST /bincode/mpn/solution`), the first
+              with A negated, answered "accepted": 0.  The validator's
+              heartbeat makes the block (`ready`, `try_produce`,
+              `promote_block`) and the peer syncs it: both at height 2,
+              the disk chain's `db_checksum` (again after reopening the
+              file) equal to the peer's, the users' MPN and L1 balances,
+              the validator's, the worker's rewards and the contract's
+              height those of the construction, `GET /explorer/blocks`
+              rendering the block; seconds from the deposits to the pool,
+              per work, from the last solution to the block and from the
+              block to the peer's sync; a wait past its deadline raises
+ 11. kernel   each kernel replayed at every size phases 4-10 (the
               `sharded` runs included) launched it with (the NTT's stages also over rows of 2^11 and 2^12 of
               2^23 and 2^24 elements), on fresh random operands (plus the edge cases: 0 and
               p − 1 among K1's operands and the NTT's inputs, R − 1 in one
@@ -189,7 +224,8 @@ mainnet key's and first proof's launches), the `launch_weighted` line (K1 Fr
 weighted by phase 7's and phase 8's launches), the `{"kernels": [...]}`
 line
 (launch counts of the phases that ran each kernel, by phase, "sharded"
-the `sharded` phase's and phase 8's sharded call's, and in all, times
+the `sharded` phase's and phase 8's sharded call's, "node" the worker's
+three proofs in phase 10, and in all, times
 averaged over their launches) and the last line
 `{"ok": true, "device": {...}}`, after a `timeline` line of each phase's
 seconds.  Any failed check raises, so the script
@@ -200,6 +236,7 @@ code 2.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import copy
 import dataclasses
@@ -209,6 +246,7 @@ import multiprocessing
 import os
 import resource
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -221,13 +259,14 @@ import torch
 from bazuka_tpu_torch.blockchain import KvStoreChain
 from bazuka_tpu_torch.blockchain import error as chain_errors
 from bazuka_tpu_torch.blockchain.chain import prover_commitment
+from bazuka_tpu_torch.client import BazukaClient, PeerAddress, to_hex
 from bazuka_tpu_torch.config.blockchain import get_dev_blockchain_config
 from bazuka_tpu_torch.core.blocks import Block
 from bazuka_tpu_torch.core.money import Ratio
 from bazuka_tpu_torch.core.transaction import ContractId, Money
 from bazuka_tpu_torch.crypto import bls12_381 as bls
 from bazuka_tpu_torch.crypto import jubjub as jj
-from bazuka_tpu_torch.db import Put, RamKvStore, keys as db_keys
+from bazuka_tpu_torch.db import DiskKvStore, Put, RamKvStore, keys as db_keys
 from bazuka_tpu_torch.fields.host import FR_GENERATOR, FR_MODULUS
 from bazuka_tpu_torch.fields.limbs import (
     FP_LIMBS,
@@ -262,6 +301,13 @@ from bazuka_tpu_torch.mpn.transitions import (
 )
 from bazuka_tpu_torch.mpn.update import update
 from bazuka_tpu_torch.mpn.workpool import MpnWorker, prepare_works
+from bazuka_tpu_torch.node import (
+    get_simulator_options,
+    http_sender,
+    node_create,
+    serve_http,
+)
+from bazuka_tpu_torch.node.simulation import Simulation, catch_change
 from bazuka_tpu_torch import parallel
 from bazuka_tpu_torch.ops import _cuda
 from bazuka_tpu_torch.ops import curve_kernels as ck
@@ -278,6 +324,8 @@ from bazuka_tpu_torch.ops import ntt as ntt_mod
 from bazuka_tpu_torch.ops.poseidon import poseidon_batch, poseidon_batch_mont
 from bazuka_tpu_torch.ops import weierstrass as wst
 from bazuka_tpu_torch.utils import ser
+from bazuka_tpu_torch.utils.logging import GLOBAL_LOGS as LOG_LINES
+from bazuka_tpu_torch.wallet import Mnemonic, WalletCollection
 from bazuka_tpu_torch.wallet.tx_builder import TxBuilder
 from bazuka_tpu_torch.zk.poseidon_host import params_for_width, poseidon
 from bazuka_tpu_torch.zk.proof import (
@@ -2487,13 +2535,15 @@ class DevChain:
     reward, 5 / 5 / 15 % of it per deposit / withdraw / update batch) and
     one registered worker b"WORKER"; the proofs handed to `pool.prove` by
     the caller; `ready`, `draft_block`, `apply_block`.  `lib` names the
-    package (PORT, or the JAX package's names in the tests)."""
+    package (PORT, or the JAX package's names in the tests); `store` is
+    the chain's store (a `RamKvStore` if None) and `validator` the
+    validator's `TxBuilder` (b"DEV-VALIDATOR"'s if None)."""
 
-    def __init__(self, conf, lib=PORT):
+    def __init__(self, conf, lib=PORT, store=None, validator=None):
         self.lib, self.conf = lib, conf
         self.cid = conf.mpn_config.mpn_contract_id
-        self.chain = lib.KvStoreChain(lib.RamKvStore(), conf)
-        self.validator = lib.TxBuilder(b"DEV-VALIDATOR")
+        self.chain = lib.KvStoreChain(store or lib.RamKvStore(), conf)
+        self.validator = validator or lib.TxBuilder(b"DEV-VALIDATOR")
         self.worker = lib.TxBuilder(b"WORKER")
         n = (1 << (2 * conf.mpn_config.log4_deposit_batch_size)) - 1
         self.users = [lib.TxBuilder(b"D%d" % i) for i in range(n)]
@@ -2506,6 +2556,18 @@ class DevChain:
         self.chain.apply_tx(self.validator.register_validator(
             "", lib.Ratio(12), lib.Money.ziesha(0),
             self.chain.get_nonce(v) + 1).tx)
+
+    def stake(self, amount: int):
+        """The validator delegates `amount` Ziesha to itself, funded on L1
+        for it: with a stake, `validator_status` gives it a VRF proof (the
+        one staker of the dev genesis, it is elected in every slot); its
+        L1 balance is all it changes of `expected()`."""
+        v, lib = self.validator, self.lib
+        self.chain._set_balance(v.get_address(), lib.ContractId.ZIESHA,
+                                amount)
+        self.chain.apply_tx(v.delegate(
+            "", v.get_address(), amount, lib.Money.ziesha(0),
+            self.chain.get_nonce(v.get_address()) + 1).tx)
 
     def mpn_txs(self, block: int):
         """(deposits, withdraws, transfers) of block 1 or 2."""
@@ -2572,24 +2634,26 @@ class DevChain:
             return True
         return False
 
-    def expected(self) -> dict:
+    def expected(self, blocks: int = 2) -> dict:
         """Each user's MPN and L1 Ziesha, the validator's MPN Ziesha, the
-        worker's L1 rewards and the contract's height that two blocks
-        give by construction."""
+        worker's L1 rewards and the contract's height that the first
+        `blocks` blocks (1 or 2) give by construction."""
         w = {str(u.get_address()) for u in self.withdrawers}
-        paid = DEV_WITHDRAW
+        paid = DEV_WITHDRAW if blocks == 2 else 0
+        fee = DEV_FEE if blocks == 2 else 0
+        rewards = self.rewards[:blocks]
         return {
-            "mpn": [DEV_DEPOSIT - DEV_FEE
+            "mpn": [DEV_DEPOSIT - fee
                     - (paid if str(u.get_address()) in w else 0)
                     for u in self.users],
             "l1": [DEV_L1_FUNDS - DEV_DEPOSIT
                    + (paid if str(u.get_address()) in w else 0)
                    for u in self.users],
             "validator_mpn": sum(r - 2 * (r // 100 * 5) - r // 100 * 15
-                                 for r in self.rewards),
+                                 for r in rewards),
             "worker_l1": sum(2 * (r // 100 * 5) + r // 100 * 15
-                             for r in self.rewards),
-            "contract_height": 1 + len(self.rewards)}
+                             for r in rewards),
+            "contract_height": 1 + len(rewards)}
 
     def state(self) -> dict:
         """The same values as the chain reads them."""
@@ -2700,7 +2764,8 @@ def devchain_phase(log4_batch: int, device):
     (IncorrectZkProof); after block 2 the balances, rewards and contract
     height of the construction, and each block's `db_checksum` equal to a
     second chain's on the VKs passed through the wire codec.  Returns
-    (launch counts, sizes) of the keys and the proofs."""
+    ((launch counts, sizes) of the keys and the proofs, the dev config,
+    the keys by circuit name)."""
     t0 = time.perf_counter()
     card = nvidia_smi_line()
     torch.cuda.synchronize()
@@ -2807,7 +2872,302 @@ def devchain_phase(log4_batch: int, device):
         raise SystemExit(f"the dev chain failed its checks: "
                          f"{[k for k, v in checks.items() if not v]}")
     require_launched("dev chain's proofs", PROOF_KERNELS, proof_runs[0])
-    return merge_phases(*runs)
+    return merge_phases(*runs), conf, keys
+
+
+# Phase 10 (node).  The validator's wallets come from this mnemonic (the
+# BIP39 test vector of 16 bytes of 0x7f), saved to a wallet file and
+# opened from it.  It delegates NODE_STAKE to itself: the one staker of
+# the dev genesis, the VRF elects it in every slot.  The nodes start
+# NODE_LEAD_S seconds before a slot begins (both clocks skewed alike), so
+# that the deposits reach the mempool before the validator's first claim
+# of that slot, and its work has the whole slot (90 s on the dev config).
+# The block must follow the last solution within NODE_BLOCK_WAIT_S.
+NODE_MNEMONIC = ("legal winner thank year wave sausage worth useful legal"
+                 " winner thank yellow")
+NODE_STAKE = 10 ** 12
+NODE_LEAD_S = 6
+NODE_BLOCK_WAIT_S = 60.0
+NODE_PORTS = (3030, 3031)  # the validator's and the peer's, in the router
+
+
+def sim_node(sim, port: int, chain, wallets, bootstrap, opts):
+    """A node on `chain` with `wallets` at `port` of a `Simulation`, wired
+    as its `add_node` wires one (which makes a chain and wallets of its
+    own)."""
+    ip = f"10.0.0.{port % 250 + 1}"
+    node = node_create(opts, "sim", PeerAddress(ip, port),
+                       [PeerAddress(f"10.0.0.{p % 250 + 1}", p)
+                        for p in bootstrap],
+                       chain, wallets, sim.sender(ip))
+    sim.nodes[port] = node
+    return node
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def slot_skew(slot_s: int, lead_s: int, now: int) -> int:
+    """The clock skew that puts the time `now` `lead_s` seconds before a
+    slot of `slot_s` seconds begins."""
+    return (slot_s - lead_s - now % slot_s) % slot_s
+
+
+async def until(pred, timeout: float):
+    """Wait for `pred()` to hold (`catch_change` of its truth); raises
+    TimeoutError past `timeout`."""
+    if not pred():
+        await catch_change(pred, timeout=timeout)
+
+
+def mark_when(marks: dict, key: str, obj, name: str, done):
+    """Wrap the method `name` of the object `obj` (this object only) so
+    that `marks[key]` gets the time at which a call of it first returns
+    with `done()` true: the pool's last solution, the validator's block,
+    the peer's sync.  (Polling from the event loop the nodes run on
+    cannot tell the validator's block from the peer's sync: the peer
+    applies the block before the loop turns again.)"""
+    call = getattr(obj, name)
+
+    def marked(*args, **kwargs):
+        out = call(*args, **kwargs)
+        if key not in marks and done():
+            marks[key] = time.perf_counter()
+        return out
+
+    setattr(obj, name, marked)
+
+
+def api_inputs_match(api: dict, work) -> bool:
+    """A work as `GET /bincode/mpn/work` shows it against the pool's."""
+    pi = work.public_inputs
+    return api == {"kind": work.data_kind, "height": pi.height,
+                   "state": hex(pi.state), "aux_data": hex(pi.aux_data),
+                   "next_state": hex(pi.next_state), "reward": work.reward}
+
+
+def card_prover(keys, device):
+    """The worker's prover: the work's circuit (`work_circuit`) proven
+    under the dev key of its kind on `device`; returns (ZkProof, what it
+    took)."""
+    def prove_work(work, prover):
+        t0 = time.perf_counter()
+        circuit, _ = work_circuit(work, prover)
+        cs = synthesize_circuit(circuit)
+        t1 = time.perf_counter()
+        before, rec = _cuda.counts(), {}
+        proof = prove.create_proof(keys[work.data_kind]["params"], cs,
+                                   device=device, record=rec)
+        torch.cuda.synchronize()
+        after = _cuda.counts()
+        return ZkProof.groth16(proof), {
+            "n_constraints": cs.n_constraints, "synthesis_s": t1 - t0,
+            "proof_s": time.perf_counter() - t1, "stage_s": rec["seconds"],
+            "launches": {k: after[k] - before[k] for k in after}}
+    return prove_work
+
+
+async def node_flow(conf, prove_work, tmp: str, lead_s: int = NODE_LEAD_S,
+                    block_wait_s: float = NODE_BLOCK_WAIT_S):
+    """Phase 10's network on a copy of the dev config `conf` with
+    `check_validator` on: the validator's node, its chain on a
+    `DiskKvStore` in `tmp` and its wallets from a wallet file there, and a
+    peer on a `RamKvStore`, both set up as `DevChain` sets up its chain
+    and staked, wired through the port's `Simulation` with the simulator's
+    heartbeats and automatic block generation; the validator also served
+    over HTTP on 127.0.0.1.  The worker b"WORKER" registers over HTTP,
+    the users' block-1 deposits go in through `BazukaClient.transact`
+    before the validator's claim of the next slot, and once that claim's
+    work pool is there, the worker proves each work with
+    `prove_work(work, prover)` (in a thread) and posts the proofs over
+    HTTP, first one with A negated.  The validator's heartbeat makes the
+    block and the peer syncs it.  Returns (record, checks); a wait past
+    its deadline raises."""
+    t0 = time.perf_counter()
+    conf = copy.deepcopy(conf)
+    conf.check_validator = True
+    wallet_path = os.path.join(tmp, "wallet.json")
+    db_path = os.path.join(tmp, "chain.sqlite")
+    wc = WalletCollection(Mnemonic(NODE_MNEMONIC))
+    wc.user(0)
+    wc.validator()
+    wc.save(wallet_path)
+    wc = WalletCollection.open(wallet_path)
+    validator, user = wc.validator().tx_builder(), wc.user(0).tx_builder()
+    vdc = DevChain(conf, store=DiskKvStore(db_path), validator=validator)
+    pdc = DevChain(conf, validator=validator)
+    for dc in (vdc, pdc):
+        dc.stake(NODE_STAKE)
+    prover = vdc.worker.get_address()
+    checks = {"mnemonic_valid": wc.mnemonic.validate_checksum(),
+              "same_chain_at_start":
+              vdc.chain.db_checksum() == pdc.chain.db_checksum()}
+
+    sim = Simulation()
+    opts = get_simulator_options()
+    opts.automatic_block_generation = True
+    vport, pport = NODE_PORTS
+    vnode = sim_node(sim, vport, vdc.chain, (validator, user), [pport], opts)
+    pnode = sim_node(sim, pport, pdc.chain, (TxBuilder(b"DEV-PEER"),
+                                             TxBuilder(b"DEV-PEER-user")),
+                     [vport], opts)
+    vctx, pctx = vnode.context, pnode.context
+    http = PeerAddress("127.0.0.1", free_port())
+    sender = http_sender()
+    client = BazukaClient(sender, http)
+    skew = slot_skew(conf.slot_duration, lead_s, int(time.time()))
+    for ctx in (vctx, pctx):
+        ctx.clock_skew = skew
+    slot = vdc.chain.epoch_slot(vctx.network_timestamp() + lead_s)
+    rec = {"check_validator": conf.check_validator,
+           "slot_s": conf.slot_duration, "lead_s": lead_s,
+           "clock_skew": skew, "slot": list(slot),
+           "stake": NODE_STAKE, "http_port": http.port}
+
+    await sim.start()
+    server = asyncio.create_task(serve_http(vnode, http.ip, http.port))
+    try:
+        t1 = time.perf_counter()
+        while True:
+            try:
+                stats = await client.stats()
+                break
+            except OSError:
+                if time.perf_counter() - t1 > 10:
+                    raise
+                await asyncio.sleep(0.05)
+        checks["served_over_http"] = stats["height"] == 1
+        checks["worker_registered"] = await sender.json_post(
+            http, "/bincode/mpn/worker", {"address": str(prover)}) == {
+            "accepted": True}
+        t_submit = time.perf_counter()
+        deposits = vdc.mpn_txs(1)[0]
+        for tx in deposits:
+            await client.transact(tx)
+        checks["deposits_before_the_slot"] = vdc.chain.epoch_slot(
+            vctx.network_timestamp()) < slot
+        checks["deposits_in_mempool"] = (
+            len(list(vctx.mempool.mpn_deposits())) == len(deposits))
+        reward = vdc.chain.min_validator_reward(validator.get_address())
+
+        def slot_pool():
+            claim, pool = vctx.validator_claim, vctx.mpn_work_pool
+            if claim is None or pool is None or vdc.chain.epoch_slot(
+                    claim.timestamp) != slot:
+                return None
+            return pool
+
+        pool = await catch_change(slot_pool, timeout=lead_s + 30.0)
+        t_pool = time.perf_counter()
+        for dc in (vdc, pdc):
+            dc.rewards.append(reward)
+        checks["pool_holds_the_deposits"] = (
+            [w.data_kind for _, w in sorted(pool.works.items())]
+            == ["deposit", "withdraw", "update"]
+            and len(pool.works[0].transitions) == len(deposits) + 1)
+        api = (await sender.json_get(http, "/bincode/mpn/work",
+                                     {"address": str(prover)}))["works"]
+        rec["api_assigned"] = sorted(int(w) for w in api)
+        checks["api_inputs_equal_pool"] = bool(api) and all(
+            api_inputs_match(v, pool.works[int(w)]) for w, v in api.items())
+        marks = {}
+        mark_when(marks, "solved", pool, "prove",
+                  lambda: len(pool.solutions) == len(pool.works))
+        mark_when(marks, "block", vdc.chain, "extend",
+                  lambda: vdc.chain.get_height() >= 2)
+        mark_when(marks, "synced", pdc.chain, "extend",
+                  lambda: pdc.chain.get_height() >= 2)
+        works, accepted = [], 0
+        for wid, work in sorted(pool.works.items()):
+            t2 = time.perf_counter()
+            proof, took = await asyncio.to_thread(prove_work, work, prover)
+            t3 = time.perf_counter()
+            if wid == 0:
+                refused = await sender.json_post(
+                    http, "/bincode/mpn/solution",
+                    {"address": str(prover),
+                     "proofs": {str(wid): to_hex(negated_a(proof))}})
+                checks["negated_a_answered_accepted_0"] = refused == {
+                    "accepted": 0}
+            t4 = time.perf_counter()
+            # the last post's answer may come after the block: the
+            # validator's heartbeat can run between the pool's check and
+            # the answer
+            got = await sender.json_post(
+                http, "/bincode/mpn/solution",
+                {"address": str(prover), "proofs": {str(wid): to_hex(proof)}})
+            accepted += got["accepted"]
+            works.append({"work": wid, "kind": work.data_kind,
+                          "transitions": len(work.transitions),
+                          "from_api": str(wid) in api, **took,
+                          "prove_s": t3 - t2, "post_s": time.perf_counter()
+                          - t4, "accepted": got["accepted"]})
+        checks["three_works_accepted_over_http"] = accepted == 3
+        await until(lambda: "synced" in marks and "block" in marks,
+                    block_wait_s)
+        view = (await sender.json_get(http, "/explorer/blocks",
+                                      {"since": 1, "count": 1}))["blocks"]
+        tip = vdc.chain.get_tip()
+        checks["explorer_renders_the_block"] = (
+            len(view) == 1 and view[0]["header"]["number"] == 1
+            and view[0]["header"]["hash"] == tip.hash().hex()
+            and [list(tx["data"]) for tx in view[0]["body"]]
+            == [["UpdateContract"]])
+        rec.update({
+            "deposits": len(deposits), "works": works,
+            "deposits_to_pool_s": t_pool - t_submit,
+            "solution_to_block_s": marks["block"] - marks["solved"],
+            "block_to_sync_s": marks["synced"] - marks["block"]})
+    except BaseException:
+        print("node logs:", *list(LOG_LINES)[-40:], sep="\n  ",
+              file=sys.stderr, flush=True)
+        raise
+    finally:
+        await sim.stop()
+        server.cancel()
+        await asyncio.gather(server, return_exceptions=True)
+
+    heights = [vdc.chain.get_height(), pdc.chain.get_height()]
+    checks["both_at_height_2"] = heights == [2, 2]
+    checks["disk_checksum_equals_ram_peer"] = (
+        vdc.chain.db_checksum() == pdc.chain.db_checksum())
+    state, expected = vdc.state(), vdc.expected(blocks=1)
+    checks.update({f"state_{k}": state[k] == v for k, v in expected.items()})
+    checks["peer_state_equal"] = pdc.state() == state
+    checksum = vdc.chain.db_checksum()
+    vdc.chain.db.close()
+    again = DiskKvStore(db_path)
+    checks["reopened_disk_checksum_equal"] = KvStoreChain(
+        again, conf).db_checksum() == checksum
+    again.close()
+    rec.update({"heights": heights, "db_checksum": checksum,
+                "block_hash": tip.hash().hex(), "state": state,
+                "expected": expected, "total_s": time.perf_counter() - t0})
+    return rec, checks
+
+
+def node_phase(conf, keys, device):
+    """The `node` phase (`node_flow` with the worker proving on the card
+    under the `devchain` keys), its line and its checks; K1's four entries
+    and K2-K5 must have run.  Returns (launch counts, sizes) of its
+    proofs."""
+    card = nvidia_smi_line()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        (rec, checks), run = counted(lambda: asyncio.run(
+            node_flow(conf, card_prover(keys, device), tmp)))
+    emit({"phase": "node", "nvidia_smi": card, **rec, "launches": run[0],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "max_memory_requested": peak_requested(), **checks})
+    if not all(checks.values()):
+        raise SystemExit(f"the node phase failed its checks: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    require_launched("node phase's proofs", PROOF_KERNELS, run[0])
+    return run
 
 
 def main(argv=None) -> int:
@@ -2887,12 +3247,15 @@ def run_phases(args, device, small: bool, batches: dict, waits: dict):
     eddsa_run, eddsa_sharded = eddsa_phase(256 if small else EDDSA_SIGS,
                                            mpn_txs, device)
     lap("eddsa")
-    devchain_run = devchain_phase(DEV_LOG4_BATCH, device)
+    devchain_run, dev_conf, dev_keys = devchain_phase(DEV_LOG4_BATCH, device)
     lap("devchain")
+    node_run = node_phase(dev_conf, dev_keys, device)
+    del dev_keys
+    lap("node")
     sharded_run = merge_phases(sharded_run, eddsa_sharded)
     launches, sizes = merge_phases(proof_run, keygen_run, b64_run, mpn_run,
                                    poseidon_run, eddsa_run, sharded_run,
-                                   devchain_run)
+                                   devchain_run, node_run)
     rows = kernel_phase(sizes, device)
     lap("kernel")
     # the MPN key's and first proof's launches at the replayed times
@@ -2921,7 +3284,8 @@ def run_phases(args, device, small: bool, batches: dict, waits: dict):
                                   "poseidon": poseidon_run[0][name],
                                   "eddsa": eddsa_run[0][name],
                                   "sharded": sharded_run[0][name],
-                                  "devchain": devchain_run[0][name]},
+                                  "devchain": devchain_run[0][name],
+                                  "node": node_run[0][name]},
             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms", "sizes")},

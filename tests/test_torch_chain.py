@@ -6,10 +6,14 @@ against the JAX package's.
   bytes; in the slow tier, the mainnet genesis state (about 150 s of the
   port's pure-Python Poseidon on one core) with the JAX chain's
   checksum.
-- Each case of tests/test_blockchain.py (but the mempool's, which is not
-  ported yet) and the chain cases of tests/test_advice_fixes.py:73, 126,
-  run in both packages on the test chain: the same observations, block
-  hashes and `db_checksum`s.
+- Each case of tests/test_blockchain.py (the mempool's among them) and
+  the chain cases of tests/test_advice_fixes.py:73, 126, run in both
+  packages on the test chain: the same observations, block hashes and
+  `db_checksum`s.
+- The mempool: one sequence of `add_tx` (local and remote, gaps, stale
+  and replaced nonces, a bad signature, MPN deposits, transfers and
+  withdrawals), `refresh` after blocks and the bans of inactive senders
+  leaves the same queues, bans and median fees in both packages.
 """
 
 import importlib
@@ -45,7 +49,10 @@ def lib(pkg: str):
         KvStoreChain=mod("blockchain").KvStoreChain,
         RamKvStore=mod("db").RamKvStore, E=mod("blockchain.error"),
         cfg=cfg, tr=tr, zk=zk, ser=mod("utils.ser"),
-        TxBuilder=mod("wallet.tx_builder").TxBuilder)
+        TxBuilder=mod("wallet.tx_builder").TxBuilder,
+        Mempool=mod("blockchain").Mempool,
+        GeneralTransaction=mod("core").GeneralTransaction,
+        mempool=mod("blockchain.mempool"))
 
 
 PORT, JAX = lib("bazuka_tpu_torch"), lib("bazuka_tpu")
@@ -281,6 +288,23 @@ def case_mint_semantics(m, chain):
     return [chain.get_token(zsh).supply]
 
 
+def case_mempool_nonce_chaining(m, chain):
+    # tests/test_blockchain.py:153
+    pool = m.Mempool(min_balance_per_tx=1)
+    u, z = users(m), m.tr.Money.ziesha
+    tds = [u.abc.create_transaction("", u.bob.get_address(), z(10), z(1), n)
+           for n in (1, 2, 4)]  # a gap at 3
+    for td in tds:
+        pool.add_tx(chain, m.GeneralTransaction(td), False, now=0)
+    accepted = [tx.inner.tx.nonce for tx, _ in pool.all()]
+    assert accepted == [1, 2]
+    td_old = u.abc.create_transaction("", u.bob.get_address(), z(10), z(1), 1)
+    before = len(pool)
+    pool.add_tx(chain, m.GeneralTransaction(td_old), False, now=0)
+    assert len(pool) == before
+    return [accepted, [tx.inner.tx.hash() for tx, _ in pool.all()]]
+
+
 CASES = [name for name in globals() if name.startswith("case_")]
 
 
@@ -293,3 +317,88 @@ def test_chain_case_equals_jax(case):
         out.append((obs, chain.get_height(), chain.get_tip().hash(),
                     chain.db_checksum()))
     assert out[0] == out[1]
+
+
+def mempool_queues(m):
+    """One sequence of `add_tx`, `refresh` and bans on package `m`'s
+    mempool over its test chain; what the queues, bans and fees show after
+    each step."""
+    chain = m.KvStoreChain(m.RamKvStore(), m.cfg.get_test_blockchain_config())
+    u, z, gt = users(m), m.tr.Money.ziesha, m.GeneralTransaction
+    cid = chain.config.mpn_config.mpn_contract_id
+    carol, dave = m.TxBuilder(b"CAROL"), m.TxBuilder(b"DAVE")
+    zsh = m.tr.ContractId.ZIESHA
+    for who, amount in ((carol, 5_000), (dave, 3 * 10**9)):
+        chain._set_balance(who.get_address(), zsh, amount)
+    pool = m.Mempool()
+
+    def send(b, n, fee=1, dst=None):
+        return gt(b.create_transaction(
+            "", (dst or u.bob).get_address(), z(10), z(fee), n))
+
+    def view():
+        return ([(g.kind, g.address, q.nonce, q.last_exec,
+                  [(m.ser.dumps(tx),
+                    s.first_seen, s.is_local, s.claimed_timestamp)
+                   for tx, s in q.txs])
+                 for g, q in pool.txs.items()],
+                sorted(pool.banned.items()), sorted(pool.local_addrs),
+                sorted(pool.median_fees().items()), len(pool))
+
+    out = []
+    # remote senders: one tx per Ziesha of balance, so CAROL (5,000
+    # units) gets one, DAVE (3 Ziesha) three; a gap and a stale nonce
+    for n in (1, 2):
+        pool.add_tx(chain, send(carol, n), False, now=10)
+    for n in (1, 2, 3, 4, 6):
+        pool.add_tx(chain, send(dave, n, fee=n), False, now=11)
+    out.append(view())
+    # local: no limit, and a local tx out of order resets its queue
+    for n in (1, 2, 3):
+        pool.add_tx(chain, send(u.abc, n), True, now=12)
+    pool.add_tx(chain, send(u.abc, 2, fee=9), True, now=13)
+    bad = send(u.abc, 3)
+    bad.inner.tx.nonce = 4
+    pool.add_tx(chain, bad, True, now=13)
+    # a newer claimed timestamp replaces the head of DAVE's queue
+    pool.add_tx(chain, send(dave, 1, fee=5, dst=carol), False, now=14,
+                claimed_timestamp=7)
+    out.append(view())
+    # MPN kinds: a deposit, then an MPN transfer and a withdrawal of it
+    pool.add_tx(chain, gt(u.abc.deposit_mpn(
+        "", cid, u.abc.get_mpn_address(), 1, z(1_000), z(0))), True, now=15)
+    pool.add_tx(chain, gt(u.abc.deposit_mpn(
+        "", m.tr.ContractId(7), u.abc.get_mpn_address(), 1, z(1), z(0))),
+        False, now=15)
+    pool.add_tx(chain, gt(u.abc.create_mpn_transaction(
+        u.bob.get_mpn_address(), z(5), z(1), 1)), True, now=15)
+    pool.add_tx(chain, gt(u.abc.withdraw_mpn(
+        "", cid, 1, z(5), z(1), u.abc.get_address())), True, now=15)
+    out.append(view())
+    # a block executes ABC's first two sends; refresh evicts them
+    for n in (1, 2):
+        chain.apply_tx(u.abc.create_transaction(
+            "", u.bob.get_address(), z(10), z(1), n).tx)
+    pool.refresh(chain, now=20)
+    out.append(view())
+    # ten minutes on, the remote senders are banned and their queues go;
+    # a banned sender's tx is refused until the ban ends
+    pool.refresh(chain, now=20 + m.mempool.BAN_THRESHOLD + 20)
+    out.append(view())
+    pool.add_tx(chain, send(carol, 1), False, now=700)
+    late = 700 + m.mempool.BAN_TIME
+    pool.add_tx(chain, send(carol, 1), False, now=late)
+    out.append(view())
+    return out
+
+
+def test_mempool_queues_equal_jax():
+    port, jax = mempool_queues(PORT), mempool_queues(JAX)
+    assert port == jax
+    # CAROL 1 (her balance's limit), DAVE 3 (nonce 4 past his limit, 6
+    # after a gap); ABC's local 1, 2 and the replacing 2; the three MPN
+    # kinds (the other contract's deposit refused); ABC's two sends gone
+    # after the block; both remote senders banned, CAROL again after
+    # her ban
+    assert [step[-1] for step in port] == [4, 4, 7, 5, 3, 4]
+    assert [len(step[1]) for step in port] == [0, 0, 0, 0, 2, 1]

@@ -2,8 +2,9 @@
 at a tiny size on the CPU.
 
 - Importing every `bazuka_tpu_torch` module (the MPN circuits, witness
-  generators and wallet, the chain, its configs, the work pool and the
-  VK codec among them), `chip_smoke` and `kernel_ab` adds no
+  generators and wallet, the chain, its configs, the work pool, the
+  VK codec, the mempool, the node, client and CLI among them),
+  `chip_smoke` and `kernel_ab` adds no
   `jax`, no `bazuka_tpu` and no `cryptography` or `nacl` module to
   `sys.modules`, nor does an Ed25519 signature and its check (compared
   before and after, since a host may pre-import jax).
@@ -32,6 +33,11 @@ at a tiny size on the CPU.
 - The `devchain` phase's flow and checks on the test chain at log4
   (3, 1, 1) with dummy proofs: they pass, and fail once a block is
   missing or altered, a VK is another or a proof's A is negated.
+- The `node` phase's flow and checks (`node_flow`) on the same chain
+  with dummy proofs: two nodes, the validator's chain on a `DiskKvStore`
+  and its wallets from a wallet file, the worker over `serve_http` on
+  127.0.0.1, the deposits before the slot's claim: every check holds;
+  with a worker whose proofs fail, no block comes and the wait raises.
 - The replay's inversion rows hold each size's kernel output to its own
   slice of one plain call over every size's operands, and fail when it
   differs.
@@ -70,8 +76,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
+    # `cli/__main__` runs the command line when imported (python -m)
     mods = sorted(m.name for m in pkgutil.walk_packages(
-        bazuka_tpu_torch.__path__, "bazuka_tpu_torch."))
+        bazuka_tpu_torch.__path__, "bazuka_tpu_torch.")
+        if not m.name.endswith(".__main__"))
     assert "bazuka_tpu_torch.ops.msm_lm" in mods
     assert {"bazuka_tpu_torch.mpn.circuits", "bazuka_tpu_torch.crypto.ed25519",
             "bazuka_tpu_torch.wallet.tx_builder",
@@ -81,7 +89,13 @@ def test_port_imports_no_jax():
             "bazuka_tpu_torch.parallel.prove",
             "bazuka_tpu_torch.blockchain", "bazuka_tpu_torch.config",
             "bazuka_tpu_torch.mpn.workpool",
-            "bazuka_tpu_torch.zk.wire"} <= set(mods)
+            "bazuka_tpu_torch.zk.wire", "bazuka_tpu_torch.blockchain.mempool",
+            "bazuka_tpu_torch.db", "bazuka_tpu_torch.utils.logging",
+            "bazuka_tpu_torch.wallet", "bazuka_tpu_torch.client",
+            "bazuka_tpu_torch.cli"} | {
+        f"bazuka_tpu_torch.node.{m}" for m in (
+            "firewall", "peer_manager", "context", "explorer", "api",
+            "heartbeat", "simulation")} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
@@ -111,7 +125,9 @@ def test_port_imports_no_jax():
     assert "bazuka_tpu_torch.parallel" in added
     assert "bazuka_tpu_torch.parallel.prove" in added
     for m in ("blockchain", "blockchain.chain", "config",
-              "config.blockchain", "mpn.workpool", "zk.wire"):
+              "config.blockchain", "mpn.workpool", "zk.wire",
+              "blockchain.mempool", "node", "node.api", "node.heartbeat",
+              "node.simulation", "client", "cli", "wallet", "utils.logging"):
         assert f"bazuka_tpu_torch.{m}" in added
 
 
@@ -403,6 +419,49 @@ def test_devchain_checks_at_tiny_size():
     moved = chip_smoke.negated_a(ZkProof.groth16(proof))
     assert moved.proof.b == proof.b and moved.proof.a.x == proof.a.x
     assert not groth16_verify(params.vk, [z], moved.proof)
+
+
+def node_conf():
+    """The test chain with one batch of each kind and 20 s slots."""
+    from bazuka_tpu_torch.config import blockchain as cfg
+
+    conf = cfg.get_test_blockchain_config()
+    for kind in ("deposit", "withdraw", "update"):
+        setattr(conf.mpn_config, f"mpn_num_{kind}_batches", 1)
+    conf.slot_duration = 20
+    return conf
+
+
+def test_node_checks_at_tiny_size(tmp_path):
+    """The `node` phase's flow and checks (`chip_smoke.node_flow`) on the
+    test chain at log4 (3, 1, 1) with dummy proofs: they hold; with
+    proofs that fail, no block comes and the wait raises."""
+    import asyncio
+
+    from bazuka_tpu_torch.zk import proof as zkproof
+    from bazuka_tpu_torch.zk.proof import ZkProof
+
+    saved = zkproof._ALLOW_DUMMY
+    try:
+        (tmp_path / "ok").mkdir()
+        rec, checks = asyncio.run(chip_smoke.node_flow(
+            node_conf(), lambda work, prover: (ZkProof.dummy(True), {}),
+            os.fspath(tmp_path / "ok"), lead_s=3, block_wait_s=20.0))
+        assert checks and all(checks.values()), checks
+        assert rec["check_validator"] and rec["heights"] == [2, 2]
+        assert [w["kind"] for w in rec["works"]] == [
+            "deposit", "withdraw", "update"]
+        assert [w["transitions"] for w in rec["works"]] == [4, 0, 0]
+        assert len(rec["api_assigned"]) == 2
+        assert rec["state"] == rec["expected"]
+        assert rec["state"]["mpn"] == [chip_smoke.DEV_DEPOSIT] * 3
+        (tmp_path / "bad").mkdir()
+        with pytest.raises(TimeoutError):
+            asyncio.run(chip_smoke.node_flow(
+                node_conf(), lambda work, prover: (ZkProof.dummy(False), {}),
+                os.fspath(tmp_path / "bad"), lead_s=3, block_wait_s=2.0))
+    finally:
+        zkproof.allow_dummy_proofs(saved)
 
 
 def test_inversion_replay_checks_each_size_against_one_plain_call(

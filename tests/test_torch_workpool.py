@@ -12,8 +12,11 @@ the balances and rewards are those of the construction; a failing dummy
 proof is refused by the pool (tests/test_mpn_pipeline.py:88) and, inside
 a block, by `apply_block`.  Work assignment (`get_works`, which draws
 from `random`) is equal under one seed.  The JAX chain's state after block
-1, carried pair by pair into the port's `RamKvStore`, reads the same and
-takes the JAX block 2 to the JAX checksum.
+1 reads the same in the port and takes the JAX block 2 to the JAX
+checksum, carried three ways: pair by pair into a port `RamKvStore`, as
+the JAX `DiskKvStore`'s sqlite file opened by the port's, and with the
+validator's wallet file saved by the JAX package; the port's next block
+on the carried state and wallet is accepted by the JAX chain.
 
 Slow tier: `get_dev_blockchain_config(3, 1, 1, device="cpu")` gives the
 JAX package's three VKs at the same seed, and a dev-chain block whose
@@ -22,7 +25,9 @@ three works the port proves on the CPU under those keys is accepted.
 
 import dataclasses
 import importlib
+import os
 import random
+import shutil
 import types
 
 import pytest
@@ -48,10 +53,11 @@ def lib(pkg: str):
         MpnWorker=wp.MpnWorker, prepare_works=wp.prepare_works, wp=wp,
         ZkProof=mod("zk.proof").ZkProof, ser=mod("utils.ser"),
         Block=mod("core.blocks").Block, errors=mod("blockchain.error"),
-        cfg=mod("config.blockchain"))
+        cfg=mod("config.blockchain"), wallet=mod("wallet"))
 
 
 PORT, JAX = lib("bazuka_tpu_torch"), lib("bazuka_tpu")
+MNEMONIC = chip_smoke.NODE_MNEMONIC
 assert set(vars(chip_smoke.PORT)) <= set(vars(PORT))
 
 
@@ -160,8 +166,19 @@ def test_bad_dummy_proof_refused():
     assert not pool.prove(0, v.get_address(), PORT.ZkProof.dummy(True))
 
 
-def test_state_carried_across_from_jax():
-    jdc = chip_smoke.DevChain(small_config(JAX), JAX)
+def test_state_carried_across_from_jax(tmp_path):
+    """Three carriers: the JAX chain's pairs put into a port `RamKvStore`,
+    its sqlite file (a JAX `DiskKvStore`) opened by the port's, and the
+    validator's wallet file saved by the JAX package and opened by the
+    port's."""
+    wallet_path = os.fspath(tmp_path / "wallet.json")
+    jwc = JAX.wallet.WalletCollection(JAX.wallet.Mnemonic(MNEMONIC))
+    jwc.validator()
+    jwc.save(wallet_path)
+    jdc = chip_smoke.DevChain(
+        small_config(JAX), JAX,
+        store=JAX.db.DiskKvStore(os.fspath(tmp_path / "jax.sqlite")),
+        validator=jwc.validator().tx_builder())
     blocks = []
     for block in (1, 2):
         pool = jdc.prepare(block)
@@ -173,26 +190,48 @@ def test_state_carried_across_from_jax():
         if block == 1:
             jdc.chain.apply_block(blk)
             pairs = jdc.chain.db.pairs("")
+            shutil.copy(tmp_path / "jax.sqlite", tmp_path / "carried.sqlite")
     store = PORT.RamKvStore()
     store.update([PORT.db.Put(k, v) for k, v in pairs])
-    chain = PORT.KvStoreChain(store, small_config(PORT))
-    assert chain.db_checksum() == jdc.chain.db_checksum()
+    chains = [PORT.KvStoreChain(store, small_config(PORT)),
+              PORT.KvStoreChain(PORT.db.DiskKvStore(
+                  os.fspath(tmp_path / "carried.sqlite")), small_config(PORT))]
+    validator = PORT.wallet.WalletCollection.open(
+        wallet_path).validator().tx_builder()
+    assert str(validator.get_address()) == str(jdc.validator.get_address())
     zsh, jzsh = PORT.ContractId.ZIESHA, JAX.ContractId.ZIESHA
-    for seed in [b"D%d" % i for i in range(3)] + [b"DEV-VALIDATOR"]:
-        u, ju = PORT.TxBuilder(seed), JAX.TxBuilder(seed)
-        assert (chain.get_balance(u.get_address(), zsh)
-                == jdc.chain.get_balance(ju.get_address(), jzsh))
-        assert (plain(chain.get_mpn_account(u.get_mpn_address()))
-                == plain(jdc.chain.get_mpn_account(ju.get_mpn_address())))
-    cid = chain.config.mpn_config.mpn_contract_id
-    assert cid.scalar == jdc.cid.scalar
-    assert (plain(chain.get_contract_account(cid))
-            == plain(jdc.chain.get_contract_account(jdc.cid)))
+    for chain in chains:
+        assert chain.db_checksum() == jdc.chain.db_checksum()
+        for u, ju in [(PORT.TxBuilder(b"D%d" % i), JAX.TxBuilder(b"D%d" % i))
+                      for i in range(3)] + [(validator, jdc.validator)]:
+            assert (chain.get_balance(u.get_address(), zsh)
+                    == jdc.chain.get_balance(ju.get_address(), jzsh))
+            assert (plain(chain.get_mpn_account(u.get_mpn_address()))
+                    == plain(jdc.chain.get_mpn_account(ju.get_mpn_address())))
+        cid = chain.config.mpn_config.mpn_contract_id
+        assert cid.scalar == jdc.cid.scalar
+        assert (plain(chain.get_contract_account(cid))
+                == plain(jdc.chain.get_contract_account(jdc.cid)))
     jdc.chain.apply_block(blocks[1])
-    chain.apply_block(PORT.ser.loads(PORT.Block,
-                                     JAX.ser.dumps(blocks[1])))
-    assert chain.db_checksum() == jdc.chain.db_checksum()
-    assert chain.get_height() == 3
+    for chain in chains:
+        chain.apply_block(PORT.ser.loads(PORT.Block,
+                                         JAX.ser.dumps(blocks[1])))
+        assert chain.db_checksum() == jdc.chain.db_checksum()
+        assert chain.get_height() == 3
+    # the port's block 3 on the carried state, drafted by the carried
+    # validator, is accepted by the JAX chain
+    port_dc = chip_smoke.DevChain(small_config(PORT), validator=validator)
+    port_dc.chain = chains[1]
+    pool = port_dc.prepare(1)
+    for w in sorted(pool.works):
+        assert pool.prove(w, port_dc.worker.get_address(),
+                          PORT.ZkProof.dummy(True))
+    _, blk = port_dc.draft(pool, 3)
+    chains[1].apply_block(blk)
+    jdc.chain.apply_block(JAX.ser.loads(JAX.Block, PORT.ser.dumps(blk)))
+    assert chains[1].db_checksum() == jdc.chain.db_checksum()
+    chains[1].db.close()
+    jdc.chain.db.close()
 
 
 @pytest.mark.slow

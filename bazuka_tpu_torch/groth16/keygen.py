@@ -44,7 +44,6 @@ import hashlib
 import io
 import os
 import pickle
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -57,6 +56,7 @@ from ..fields.limbs import (FP_LIMBS, fp_field, fr_field, narrow_limbs,
                             narrow_np, narrow_to_device, to_numpy)
 from ..ops import weierstrass as wst
 from ..ops.msm_lm import msm_pad_len
+from ..utils import spans
 from ..zk.proof import G1Wire, G2Wire, Groth16VerifyingKey
 from . import qap
 from .sparse import DeviceR1CS, encode_mont
@@ -193,6 +193,7 @@ def _decode_g2_am(am, inf) -> List[bls.G2Point]:
             for j, i in enumerate(np.asarray(inf.cpu()))]
 
 
+@spans.call("generate_parameters")
 def generate_parameters(cs, seed: bytes = b"bazuka-tpu-dev", device="cuda",
                         record: Optional[dict] = None,
                         device_queries=None) -> Parameters:
@@ -202,38 +203,29 @@ def generate_parameters(cs, seed: bytes = b"bazuka-tpu-dev", device="cuda",
     False; None: `default_residency(Np)`) says which queries stay on the
     card, narrow; the others are written chunk by chunk into host arrays.
     If `record` is a dict it is filled with per-stage seconds (the card
-    synchronised at each stage boundary) under "seconds"."""
+    synchronised at each stage boundary) under "seconds".  The stages are
+    spans of the call either way (`utils.spans`); only `record`
+    synchronises."""
     dev = resolve_device(device)
-    sync = record is not None and dev.type == "cuda"
-    t_last = [time.perf_counter()]
-    stages = {}
-
-    def tick(name):
-        if record is None:
-            return
-        if sync:
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        stages[name] = now - t_last[0]
-        t_last[0] = now
-
+    st = spans.Stages("setup", (lambda: torch.cuda.synchronize(dev))
+                      if record is not None and dev.type == "cuda" else None)
     comp = cs.compiled()
     dr = DeviceR1CS(comp, dev)
     num_vars, n_inputs = comp.num_vars, comp.num_inputs
     tau, alpha, beta, gamma, delta = _rng_scalars(seed, 5, b"toxic")
     d = qap.domain_size(comp.n_constraints, n_inputs)
     F = fr_field()
-    tick("setup")
+    st.next("lagrange_host")
 
     # Lagrange values at tau over the size-d domain (host), then the
     # column evaluation on the device
     L = qap.lagrange_at(tau, d)
-    tick("lagrange_host")
+    st.next("col_eval")
     L_mont = encode_mont(L[: dr.n_rows], dev)
     del L
     u_m, v_m, w_m = dr.eval_cols(L_mont)  # (num_vars, 16) mont each
     del L_mont
-    tick("col_eval")
+    st.next("scalar_algebra")
 
     gamma_inv = pow(gamma, -1, R)
     delta_inv = pow(delta, -1, R)
@@ -249,7 +241,7 @@ def generate_parameters(cs, seed: bytes = b"bazuka-tpu-dev", device="cuda",
     u_std = F.from_mont(u_m)
     v_std = F.from_mont(v_m)
     del u_m, v_m, w_m, combo
-    tick("scalar_algebra")
+    st.next("h_scalars_host")
 
     # h query scalars: tau^i * Z(tau)/delta, i in 0..d-2 (host geometric)
     h_scalars = []
@@ -260,7 +252,7 @@ def generate_parameters(cs, seed: bytes = b"bazuka-tpu-dev", device="cuda",
     h_std = F.encode(np.array(h_scalars, dtype=object), mont=False,
                      device=dev)
     del h_scalars
-    tick("h_scalars_host")
+    st.next("g1_head_ic")
 
     # every query has one padded length, the prover's MSM length; each is
     # written chunk by chunk, narrow, where it will live (pad rows:
@@ -287,22 +279,22 @@ def generate_parameters(cs, seed: bytes = b"bazuka-tpu-dev", device="cuda",
     alpha_g1, beta_g1, delta_g1 = _decode_g1_am(
         *_gen_mul_am(head([alpha, beta, delta]), "g1"))
     ic_pts = _decode_g1_am(*_gen_mul_am(ic_std, "g1"))
-    tick("g1_head_ic")
+    st.next("a_query")
     a_query = make_query("a_query", u_std)
-    tick("a_query")
+    st.next("b_g1_query")
     b_g1_query = make_query("b_g1_query", v_std)
-    tick("b_g1_query")
+    st.next("l_query")
     l_query = make_query("l_query", l_std)
-    tick("l_query")
+    st.next("h_query")
     h_query = make_query("h_query", h_std)
     del h_std
-    tick("h_query")
+    st.next("g2_head_b_g2_query")
 
     # G2: [beta, gamma, delta] head + the v tail
     beta_g2, gamma_g2, delta_g2 = _decode_g2_am(
         *_gen_mul_am(head([beta, gamma, delta]), "g2"))
     b_g2_query = make_query("b_g2_query", v_std)
-    tick("g2_head_b_g2_query")
+    st.end()
 
     pk = ProvingKey(
         alpha_g1=alpha_g1,
@@ -327,7 +319,7 @@ def generate_parameters(cs, seed: bytes = b"bazuka-tpu-dev", device="cuda",
         ic=[g1_wire(p) for p in ic_pts],
     )
     if record is not None:
-        record["seconds"] = stages
+        record["seconds"] = st.seconds
     return Parameters(pk=pk, vk=vk, dev_r1cs=dr)
 
 

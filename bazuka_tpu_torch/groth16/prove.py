@@ -37,8 +37,8 @@ next stage without a wait; the port's stages run without one.
 
 from __future__ import annotations
 
+import contextvars
 import secrets
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -53,6 +53,7 @@ from ..fields.limbs import (fr_field, ints_to_array, narrow_limbs,
                             widen_limbs)
 from ..ops import msm_lm as msm
 from ..ops import ntt as ntt_mod
+from ..utils import spans
 from ..zk.proof import Groth16Proof
 from . import qap
 from .keygen import Parameters, g1_wire, g2_wire
@@ -134,8 +135,16 @@ def _pad_rows(x, d: int):
 
 
 def _dedup_plans(z_np: np.ndarray, n_inputs: int):
-    plan_z = msm.make_dedup_plan(z_np)
-    return plan_z, plan_z.derive_shifted(n_inputs)
+    with spans.span("dedup.build"):
+        plan_z = msm.make_dedup_plan(z_np)
+        return plan_z, plan_z.derive_shifted(n_inputs)
+
+
+def _opening(name: str, query) -> str:
+    """The first stage of MSM `name`: its query's upload if the query
+    lives on the host, else the MSM."""
+    return f"upload_{name}" if isinstance(query[0], np.ndarray) \
+        else f"msm_{name}"
 
 
 def _g2_msm_big(query, scalars_std, plan, c: int, chunk: int):
@@ -205,6 +214,7 @@ def assemble(pk, sums: dict, r: int, s: int) -> Groth16Proof:
     return Groth16Proof(a=g1_wire(A_pt), b=g2_wire(B2_pt), c=g1_wire(C_pt))
 
 
+@spans.call("create_proof")
 def create_proof(
     params: Parameters,
     cs: ConstraintSystem,
@@ -219,21 +229,11 @@ def create_proof(
     boundary; `upload_*` the wait for a host query's upload), the dedup
     plan's heavy-value count, whether big mode ran and, below BIG_DOMAIN,
     the h coefficients ("h_std"; big mode keeps one copy of h, the MSM's
-    padded one)."""
+    padded one).  The stages are spans of the call either way
+    (`utils.spans`); only `record` synchronises."""
     dev = resolve_device(device)
-    sync = record is not None and dev.type == "cuda"
-    t_last = [time.perf_counter()]
-    stages = {}
-
-    def tick(name):
-        if record is None:
-            return
-        if sync:
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        stages[name] = now - t_last[0]
-        t_last[0] = now
-
+    st = spans.Stages("setup", (lambda: torch.cuda.synchronize(dev))
+                      if record is not None and dev.type == "cuda" else None)
     pk = params.pk
     dr = params.dev_r1cs
     if (dr is None or dr.c.n_constraints != cs.n_constraints
@@ -247,17 +247,19 @@ def create_proof(
     if s is None:
         s = secrets.randbelow(bls.R)
     F = fr_field()
-    tick("setup")
+    st.next("witness_encode")
 
-    z_ints = cs.full_assignment()
+    with spans.span("witness.assignment"):
+        z_ints = cs.full_assignment()
     if len(z_ints) != num_vars:
         raise SynthesisError("assignment/circuit shape mismatch")
     Np = pk.a_query[0].shape[0]
     d = qap.domain_size(dr.c.n_constraints, n_inputs)
     big = d >= BIG_DOMAIN
     g2_chunk = (1 << 17) if big else (1 << 18)
-    z_np = np.zeros((Np, 16), np.uint32)
-    z_np[:num_vars] = ints_to_array([v % P for v in z_ints], 16)
+    with spans.span("witness.limbs"):
+        z_np = np.zeros((Np, 16), np.uint32)
+        z_np[:num_vars] = ints_to_array([v % P for v in z_ints], 16)
     del z_ints
     if big:  # only the narrow z is held through the h phase
         z_narrow = narrow_to_device(z_np, dev)
@@ -265,16 +267,18 @@ def create_proof(
     else:
         z_std = to_torch(z_np, dev)
         z_mont = F.to_mont(z_std)
-    tick("witness_encode")
+    st.next("row_eval")
 
     with ThreadPoolExecutor(max_workers=1) as pool:
-        plans = pool.submit(_dedup_plans, z_np, n_inputs)
+        # the worker's spans land in this call
+        plans = pool.submit(contextvars.copy_context().run, _dedup_plans,
+                            z_np, n_inputs)
         evs = [_pad_rows(p.eval(z_mont, dr.pal_mont), d)
                for p in dr.row_plans]
         del z_mont
-        tick("row_eval")
+        st.next("h_ntt")
         h_std = compute_h_mont(evs, d)
-        tick("h_ntt")
+        st.next("dedup_plans")
         # the wait for the plans past the h phase
         plan_z, plan_aux = plans.result()
     if big:
@@ -283,7 +287,7 @@ def create_proof(
     # aux = z shifted down by the public inputs, a zero tail: on the card
     aux = torch.zeros_like(z_std)
     aux[: num_vars - n_inputs] = z_std[n_inputs:num_vars]
-    tick("dedup_plans")
+    st.next(_opening("a", pk.a_query))
 
     # every query has the same padded length Np (scalars zero-padded); the
     # scalars ride in one-element lists that each MSM empties, so that the
@@ -312,18 +316,19 @@ def create_proof(
     jobs.append(("b_g2", pk.b_g2_query, run_g2, [z_std], plan_z))
     del z_std
     sums = {"h": None, "l": None}
-    for name, query, run, box, plan in jobs:
+    for k, (name, query, run, box, plan) in enumerate(jobs):
         q = _put(query, dev)
         if isinstance(query[0], np.ndarray):
-            tick(f"upload_{name}")
+            st.next(f"msm_{name}")
         sums[name] = run(q, box, plan)
         del q
-        tick(f"msm_{name}")
+        st.next(_opening(*jobs[k + 1][:2]) if k + 1 < len(jobs)
+                else "combine")
 
     proof = assemble(pk, sums, r, s)
-    tick("combine")
+    st.end()
     if record is not None:
-        record["seconds"] = stages
+        record["seconds"] = st.seconds
         record["n_heavy_vals"] = plan_z.n_heavy_vals
         record["big_mode"] = big
     return proof

@@ -24,6 +24,7 @@ from ..groth16.gadgets import (
     verify_eddsa,
 )
 from ..groth16.r1cs import ONE, ConstraintSystem
+from ..utils import spans
 from .config import MpnConfig
 from .deposit import deposit_aux_model
 from .transitions import (
@@ -460,6 +461,7 @@ class WithdrawCircuit:
         state_wit.assert_equal(cs, claimed_next)
 
 
+@spans.call("synthesize_circuit")
 def synthesize_circuit(circuit, proving: bool = True) -> ConstraintSystem:
     cs = ConstraintSystem(proving=proving)
     circuit.synthesize(cs)

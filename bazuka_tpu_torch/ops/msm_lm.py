@@ -33,6 +33,7 @@ import torch
 from ..crypto import bls12_381 as bls
 from ..fields.limbs import (fp_field, fr_field, to_torch, widen_flags,
                             widen_limbs)
+from ..utils import spans
 from . import curve_kernels as ck
 from . import weierstrass as wst
 
@@ -80,6 +81,12 @@ def _window_digits(scalars: torch.Tensor, c: int, n_windows: int):
 
 _STATIC_SCAN = 3  # segmented-scan steps run before the data-dependent tail
 _SENT = 0x7FFFFFFF
+
+
+def _any_on_host(m: torch.Tensor) -> bool:
+    """Whether any of `m` is set, read on the host: the drain's
+    data-dependent scan waits here for the card (span "msm.sync")."""
+    return spans.timed("msm.sync", bool, m.any())
 
 
 def _msm_v3(P_am, inf, scalars, c: int, nbits: int, chunk: int, kind: str):
@@ -180,7 +187,7 @@ def _msm_v3(P_am, inf, scalars, c: int, nbits: int, chunk: int, kind: str):
             acc_r = addsel(acc_r, shifted, m)
         step = 1 << _STATIC_SCAN
         ksh = torch.cat([run_key[step:], sent.expand(step)])
-        moved = bool(((ksh == run_key) & (run_key < _SENT)).any())
+        moved = _any_on_host((ksh == run_key) & (run_key < _SENT))
         k = _STATIC_SCAN
         while moved and k < max_scan_log:
             step = 1 << k
@@ -188,7 +195,7 @@ def _msm_v3(P_am, inf, scalars, c: int, nbits: int, chunk: int, kind: str):
             m = ((lane_r + step < R_cap) & (run_key[src] == run_key)
                  & (run_key < _SENT))
             acc_r = addsel(acc_r, acc_r[:, :, src], m)
-            moved = bool(m.any())
+            moved = _any_on_host(m)
             k += 1
 
         # bucket placement: the first run of key q holds bucket q's sum

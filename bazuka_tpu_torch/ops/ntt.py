@@ -36,6 +36,7 @@ import torch
 
 from ..fields.host import FR_GENERATOR, FR_MODULUS, FR_TWO_ADICITY
 from ..fields.limbs import fr_field
+from ..utils import spans
 from .field_kernel import ntt_stages_
 
 P = FR_MODULUS
@@ -95,6 +96,7 @@ _TABLE_CACHE_MAX_LOG_N = 21
 
 
 def _build_stage_twiddles(log_n: int, inverse: bool, device: str):
+    spans.count("ntt.table_build")
     w = root_of_unity(log_n)
     if inverse:
         w = pow(w, -1, P)
@@ -120,6 +122,7 @@ def _rev(log_n: int, device: str) -> torch.Tensor:
 
 
 def _build_coset_scale(log_n: int, inverse: bool, device: str):
+    spans.count("ntt.table_build")
     g = FR_GENERATOR if not inverse else pow(FR_GENERATOR, -1, P)
     e = torch.arange(1 << log_n, dtype=torch.int64, device=device)
     return _pow_table(e, g, log_n)

@@ -44,6 +44,7 @@ from ..groth16.sparse import DeviceR1CS
 from ..ops import curve_kernels as ck
 from ..ops import msm_lm as msm
 from ..ops import ntt as ntt_mod
+from ..utils import spans
 from ..zk.proof import Groth16Proof
 from . import Mesh, _blocks, gather_rows, ntt_four_step, synchronize
 
@@ -246,19 +247,12 @@ def create_proof_sharded(params: Parameters, cs: ConstraintSystem, mesh: Mesh,
     may lie on a card or on the host.  Np must divide by the mesh's size.
     If `record` is a dict it gets per-stage seconds (the cards
     synchronised at each stage boundary; `upload_*` a host query's
-    uploads, outside its `msm_*`) and the dedup plan's heavy-value count."""
+    uploads, outside its `msm_*`) and the dedup plan's heavy-value count.
+    The stage seconds come from `utils.spans.Stages`; only `record`
+    synchronises."""
     dev = mesh[0]
-    t_last = [time.perf_counter()]
-    stages = {}
-
-    def tick(name, less: float = 0.0):
-        if record is None:
-            return
-        synchronize(mesh)
-        now = time.perf_counter()
-        stages[name] = now - t_last[0] - less
-        t_last[0] = now
-
+    st = spans.Stages("setup", (lambda: synchronize(mesh))
+                      if record is not None else None)
     pk = params.pk
     Np = pk.a_query[0].shape[0]
     if Np % len(mesh):
@@ -276,7 +270,7 @@ def create_proof_sharded(params: Parameters, cs: ConstraintSystem, mesh: Mesh,
     if s is None:
         s = secrets.randbelow(bls.R)
     F = fr_field()
-    tick("setup")
+    st.next("witness_encode")
 
     z_ints = cs.full_assignment()
     if len(z_ints) != num_vars:
@@ -287,20 +281,20 @@ def create_proof_sharded(params: Parameters, cs: ConstraintSystem, mesh: Mesh,
     del z_ints
     z_std = to_torch(z_np, dev)
     z_mont = F.to_mont(z_std)
-    tick("witness_encode")
+    st.next("row_eval")
 
     with ThreadPoolExecutor(max_workers=1) as pool:
         plans = pool.submit(single._dedup_plans, z_np, n_inputs)
         evs = [single._pad_rows(p.eval(z_mont, dr.pal_mont), d)
                for p in dr.row_plans]
         del z_mont
-        tick("row_eval")
+        st.next("h_ntt")
         h_std = compute_h_sharded(mesh, evs, d)
-        tick("h_ntt")
+        st.next("dedup_plans")
         plan_z, plan_aux = plans.result()
     aux = torch.zeros_like(z_std)
     aux[: num_vars - n_inputs] = z_std[n_inputs:num_vars]
-    tick("dedup_plans")
+    st.next("msm_a")
 
     jobs = [("a", pk.a_query, z_std, plan_z, "g1"),
             ("b_g1", pk.b_g1_query, z_std, plan_z, "g1")]
@@ -320,14 +314,14 @@ def create_proof_sharded(params: Parameters, cs: ConstraintSystem, mesh: Mesh,
             mesh, query, scalars, kind, c=c_full, dedup_plan=plan,
             record=None if record is None else up)
         del scalars
-        if "upload_s" in up:
-            stages[f"upload_{name}"] = up["upload_s"]
-        tick(f"msm_{name}", up.get("upload_s", 0.0))
+        st.next(f"msm_{jobs[0][0]}" if jobs else "combine",
+                (f"upload_{name}", up["upload_s"]) if "upload_s" in up
+                else None)
 
     proof = single.assemble(pk, sums, r, s)
-    tick("combine")
+    st.end()
     if record is not None:
-        record["seconds"] = stages
+        record["seconds"] = st.seconds
         record["n_heavy_vals"] = plan_z.n_heavy_vals
         record["shards"] = [str(x) for x in mesh]
     return proof

@@ -1,6 +1,7 @@
 """Groth16 prover on the card (port of `bazuka_tpu/groth16/prove.py`).
 
-  1. witness limb encode on the host, one upload, one to_mont multiply
+  1. witness limb encode on the host in one native pass
+     (groth16.witness), one narrow upload, one to_mont multiply
   2. a_j, b_j, c_j per extended constraint row: sparse row evaluation
      (groth16.sparse)
   3. h(x) = (a(x)·b(x) − c(x)) / Z(x) via 3 iNTT + 3 coset NTT + 1 coset
@@ -48,17 +49,17 @@ import torch
 from ..crypto import bls12_381 as bls
 from ..device import resolve_device
 from ..fields.host import FR_GENERATOR, FR_MODULUS
-from ..fields.limbs import (fr_field, ints_to_array, narrow_limbs,
-                            narrow_to_device, to_torch, widen_flags,
-                            widen_limbs)
+from ..fields.limbs import (fr_field, narrow_limbs, narrow_to_device,
+                            to_torch, widen_flags, widen_limbs)
 from ..ops import msm_lm as msm
 from ..ops import ntt as ntt_mod
 from ..utils import spans
 from ..zk.proof import Groth16Proof
 from . import qap
 from .keygen import Parameters, g1_wire, g2_wire
-from .r1cs import ConstraintSystem, SynthesisError
+from .r1cs import ConstraintSystem
 from .sparse import DeviceR1CS
+from .witness import encode_assignment
 
 P = FR_MODULUS
 
@@ -249,23 +250,17 @@ def create_proof(
     F = fr_field()
     st.next("witness_encode")
 
-    with spans.span("witness.assignment"):
-        z_ints = cs.full_assignment()
-    if len(z_ints) != num_vars:
-        raise SynthesisError("assignment/circuit shape mismatch")
     Np = pk.a_query[0].shape[0]
     d = qap.domain_size(dr.c.n_constraints, n_inputs)
     big = d >= BIG_DOMAIN
     g2_chunk = (1 << 17) if big else (1 << 18)
-    with spans.span("witness.limbs"):
-        z_np = np.zeros((Np, 16), np.uint32)
-        z_np[:num_vars] = ints_to_array([v % P for v in z_ints], 16)
-    del z_ints
+    z_np = encode_assignment(cs, num_vars, Np)
+    z_narrow = narrow_to_device(z_np, dev)
     if big:  # only the narrow z is held through the h phase
-        z_narrow = narrow_to_device(z_np, dev)
         z_mont = F.to_mont(_widen_u32(z_narrow))
     else:
-        z_std = to_torch(z_np, dev)
+        z_std = _widen_u32(z_narrow)
+        del z_narrow
         z_mont = F.to_mont(z_std)
     st.next("row_eval")
 

@@ -35,12 +35,13 @@ import torch
 
 from ..crypto import bls12_381 as bls
 from ..fields.host import FR_GENERATOR, FR_MODULUS
-from ..fields.limbs import fr_field, ints_to_array, narrow_to_device, to_torch
+from ..fields.limbs import fr_field, narrow_to_device, to_torch
 from ..groth16 import prove as single
 from ..groth16 import qap
 from ..groth16.keygen import Parameters
-from ..groth16.r1cs import ConstraintSystem, SynthesisError
+from ..groth16.r1cs import ConstraintSystem
 from ..groth16.sparse import DeviceR1CS
+from ..groth16.witness import encode_assignment
 from ..ops import curve_kernels as ck
 from ..ops import msm_lm as msm
 from ..ops import ntt as ntt_mod
@@ -272,14 +273,9 @@ def create_proof_sharded(params: Parameters, cs: ConstraintSystem, mesh: Mesh,
     F = fr_field()
     st.next("witness_encode")
 
-    z_ints = cs.full_assignment()
-    if len(z_ints) != num_vars:
-        raise SynthesisError("assignment/circuit shape mismatch")
     d = qap.domain_size(dr.c.n_constraints, n_inputs)
-    z_np = np.zeros((Np, 16), np.uint32)
-    z_np[:num_vars] = ints_to_array([v % P for v in z_ints], 16)
-    del z_ints
-    z_std = to_torch(z_np, dev)
+    z_np = encode_assignment(cs, num_vars, Np)
+    z_std = single._widen_u32(narrow_to_device(z_np, dev))
     z_mont = F.to_mont(z_std)
     st.next("row_eval")
 

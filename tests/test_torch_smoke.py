@@ -6,8 +6,9 @@ at a tiny size on the CPU.
   VK codec, the mempool, the node, client and CLI among them),
   `chip_smoke` and `kernel_ab` adds no
   `jax`, no `bazuka_tpu` and no `cryptography` or `nacl` module to
-  `sys.modules`, nor does an Ed25519 signature and its check (compared
-  before and after, since a host may pre-import jax).
+  `sys.modules`, nor do an Ed25519 signature and its check, nor building
+  and loading the witness encoder's library (compared before and after,
+  since a host may pre-import jax).
 - `chip_smoke.py` exits non-zero and prints no result without a CUDA
   device, and alone in a directory without the package.
 - The real-size proof phase at d = 2^6: the synthetic circuit and known-log
@@ -104,6 +105,9 @@ def test_port_imports_no_jax():
         # signing and verifying import nothing later either
         "from bazuka_tpu_torch.core.transaction import ContractId, Money\n"
         "from bazuka_tpu_torch.wallet.tx_builder import TxBuilder\n"
+        # nor does building and loading the witness encoder's library
+        "from bazuka_tpu_torch.groth16 import witness\n"
+        "witness.load_encoder()\n"
         "b, t = TxBuilder(b'x'), ContractId(5)\n"
         "d = b.deposit_mpn('', t, b.get_mpn_address(), 1, Money(t, 1),\n"
         "                  Money.ziesha(0))\n"

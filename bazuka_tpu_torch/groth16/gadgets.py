@@ -7,15 +7,22 @@ in-circuit Poseidon, 4-ary Merkle proofs, JubJub EdDSA verification and
 state-model reveal — with our own constraint ordering (keys are
 self-generated; SURVEY.md §7 hard-part #3 fallback).
 
-A copy of `bazuka_tpu/groth16/gadgets.py`."""
+A copy of `bazuka_tpu/groth16/gadgets.py`, but for how `poseidon` emits
+its constraints: from a template of the width after the first round's
+S-boxes, the same constraints, palette and assignment."""
 
 from __future__ import annotations
 
+import functools
+from operator import mul
 from typing import List, Optional, Tuple
+
+import numpy as np
 
 from ..crypto import jubjub as jj
 from ..fields.host import FR, FR_MODULUS
 from ..zk.poseidon_host import params_for_width
+from ..utils import spans
 from .r1cs import ONE, ConstraintSystem, SynthesisError, lc_add, lc_scale, lc_sub
 
 P = FR_MODULUS
@@ -263,49 +270,172 @@ class UnsignedInteger:
 # ---------------------------------------------------------------- poseidon
 
 
-def poseidon(cs: ConstraintSystem, vals: List[Num]) -> Num:
-    """In-circuit Poseidon mirroring the native permutation
+# Every hash of one width t emits the same constraints but for its first
+# round's S-boxes, the only ones whose LCs hold the inputs: from that
+# round's MDS product on, each LC is over variables the hash allocated
+# itself and ONE, with coefficients from the width's MDS matrix and round
+# constants.  So `poseidon` emits the first round's S-boxes term by term
+# and the rest from a template of the width (`_PoseidonTemplate`),
+# recorded once from `_poseidon_terms`, the gadget term by term.
+
+
+def _sbox(cs: ConstraintSystem, a: Num) -> Num:
+    """x^5 in 3 constraints: x^2, x^4, x^5, allocated in that order."""
+    a2 = a.mul(cs, a)
+    a4 = a2.mul(cs, a2)
+    return a.mul(cs, a4)
+
+
+def _add_constants(params, elems: List[Num], rnd: int) -> List[Num]:
+    rc = params.round_constants
+    return [e.add_const(rc[rnd * params.t + i]) for i, e in enumerate(elems)]
+
+
+def _product_mds(params, elems: List[Num]) -> List[Num]:
+    out = []
+    for row in params.mds:
+        acc = Num.zero()
+        for e, m in zip(elems, row):
+            acc = acc + e.scale(m)
+        out.append(acc)
+    return out
+
+
+def _rounds(params) -> List[bool]:
+    """Each round's kind in order: True full, False partial."""
+    half = [True] * (params.full_rounds // 2)
+    return half + [False] * params.partial_rounds + half
+
+
+def _poseidon_terms(cs: ConstraintSystem, vals: List[Num]) -> Num:
+    """In-circuit Poseidon term by term, mirroring the native permutation
     (reference: gadgets/poseidon/mod.rs).  S-box costs 3 constraints;
     MDS/constants fold into LCs for free; partial rounds compress the
     non-S-boxed lanes."""
     elems = [Num.zero()] + list(vals)
     params = params_for_width(len(elems))
-
-    def sbox(a: Num) -> Num:
-        a2 = a.mul(cs, a)
-        a4 = a2.mul(cs, a2)
-        return a.mul(cs, a4)
-
-    def add_constants(elems, offset):
-        return [e.add_const(params.round_constants[offset + i])
-                for i, e in enumerate(elems)]
-
-    def product_mds(elems):
-        out = []
-        for j in range(len(elems)):
-            acc = Num.zero()
-            for k in range(len(elems)):
-                acc = acc + elems[k].scale(params.mds[j][k])
-            out.append(acc)
-        return out
-
-    offset = 0
-    for _ in range(params.full_rounds // 2):
-        elems = add_constants(elems, offset)
-        elems = [sbox(e) for e in elems]
-        elems = product_mds(elems)
-        offset += len(elems)
-    for _ in range(params.partial_rounds):
-        elems = add_constants(elems, offset)
-        elems = [sbox(elems[0])] + [e.compress(cs) for e in elems[1:]]
-        elems = product_mds(elems)
-        offset += len(elems)
-    for _ in range(params.full_rounds // 2):
-        elems = add_constants(elems, offset)
-        elems = [sbox(e) for e in elems]
-        elems = product_mds(elems)
-        offset += len(elems)
+    for rnd, full in enumerate(_rounds(params)):
+        elems = _add_constants(params, elems, rnd)
+        if full:
+            elems = [_sbox(cs, e) for e in elems]
+        else:
+            elems = [_sbox(cs, elems[0])] + [e.compress(cs) for e in elems[1:]]
+        elems = _product_mds(params, elems)
     return elems[1]
+
+
+class _PoseidonTemplate:
+    """What `_poseidon_terms` emits at width t after its first round's
+    S-boxes.  A hash whose S-boxes start at row r0 and variable base holds
+    them at rows r0 .. r0 + 3t - 1 and variables base .. base + 3t - 1
+    (lane i's x^5 at base + 3i + 2); the template is relative to those two
+    offsets:
+
+    - rows[m], vars[m], cidx[m]: matrix m's terms in enforce order, int32:
+      the row less r0; the variable less base where fresh[m] is 1 (ONE,
+      where it is 0, stays 0); the coefficient's index in `coeffs`;
+    - coeffs: the distinct coefficients in the order the terms first use
+      them (rows in order, A then B then C within a row);
+    - n_rows, n_vars: the constraints and aux variables after the S-boxes;
+    - out: the output LC as (variable less base, coefficient) in order."""
+
+    def __init__(self, t: int):
+        self.params = params = params_for_width(t)
+        rounds = _rounds(params)
+        assert rounds[0], "the first round is a full one"
+        cs = ConstraintSystem(proving=False)
+        vals = [Num.alloc(cs, None) for _ in range(t - 1)]
+        base, head = len(cs.assignment), 3 * t
+        out = _poseidon_terms(cs, vals)
+        self.n_rows = cs.n_constraints - head
+        self.n_vars = len(cs.assignment) - base - head
+        # the allocations `values` replays: 3 per S-box, 1 per compress
+        assert self.n_vars == sum(3 * t if full else 3 + t - 1
+                                  for full in rounds[1:])
+        terms = []
+        for m in range(3):
+            rows = np.frombuffer(cs._rows[m], dtype=np.int32)
+            k = int(np.searchsorted(rows, head))
+            terms.append((rows[k:], np.frombuffer(cs._vars[m], np.int32)[k:],
+                          np.frombuffer(cs._cids[m], np.int32)[k:]))
+        # enforce order across the matrices: by row, then matrix, then term
+        rows = np.concatenate([r for r, _, _ in terms])
+        mat = np.concatenate([np.full(len(r), m) for m, (r, _, _)
+                              in enumerate(terms)])
+        order = np.lexsort((np.arange(len(rows)), mat, rows))
+        first = list(dict.fromkeys(
+            np.concatenate([c for _, _, c in terms])[order].tolist()))
+        self.coeffs = [cs._palette[c] for c in first]
+        index = np.zeros(len(cs._palette), dtype=np.int32)
+        index[first] = np.arange(len(first), dtype=np.int32)
+        self.rows, self.vars, self.fresh, self.cidx = [], [], [], []
+        for r, v, c in terms:
+            fresh = v != ONE
+            assert (v[fresh] >= base).all(), "the tail reads no input"
+            self.rows.append(r.copy())
+            self.vars.append(np.where(fresh, v - base, ONE).astype(np.int32))
+            self.fresh.append(fresh.astype(np.int32))
+            self.cidx.append(index[c])
+        self.out = [(v - base, c) for v, c in out.lc.items()]
+        assert all(v >= 0 for v, _ in self.out)
+        self.nones = [None] * self.n_vars
+        rc = params.round_constants
+        self.schedule = [(rc[rnd * t:(rnd + 1) * t], full)
+                         for rnd, full in enumerate(rounds) if rnd]
+        self.mds = [tuple(row) for row in params.mds]
+
+    def values(self, s: List[int]):
+        """The aux values after the first round's S-boxes, in allocation
+        order, and the output's, from those S-boxes' x^5 values s."""
+        t, mds = self.params.t, self.mds
+        out = []
+        for consts, full in self.schedule:
+            # the previous round's MDS product, then this round's constants
+            s = [(sum(map(mul, row, s)) + k) % P
+                 for row, k in zip(mds, consts)]
+            for i in range(t if full else 1):
+                x = s[i]
+                x2 = x * x % P
+                x4 = x2 * x2 % P
+                s[i] = x5 = x * x4 % P
+                out += (x2, x4, x5)
+            if not full:
+                out += s[1:]
+        return out, sum(map(mul, mds[1], s)) % P
+
+    def emit(self, cs: ConstraintSystem, r0: int, base: int,
+             head: List[Num]) -> Num:
+        """Append the rest of the hash whose first round's S-boxes start at
+        row r0 and variable base and returned `head`; return its output."""
+        ids = cs.template_cids(self, self.coeffs)
+        if cs.proving:
+            values, value = self.values([e.value for e in head])
+        else:
+            values, value = self.nones, None
+        cs.append_terms([r + r0 for r in self.rows],
+                        [v + f * base for v, f in zip(self.vars, self.fresh)],
+                        [ids[c] for c in self.cidx], self.n_rows, values)
+        return Num({v + base: c for v, c in self.out}, value)
+
+
+_template = functools.cache(_PoseidonTemplate)
+
+
+def _poseidon(cs: ConstraintSystem, vals: List[Num]) -> Num:
+    spans.count("synthesis.poseidon_hashes")
+    elems = [Num.zero()] + list(vals)
+    tpl = _template(len(elems))
+    r0, base = cs.n_constraints, len(cs.assignment)
+    head = [_sbox(cs, e) for e in _add_constants(tpl.params, elems, 0)]
+    return tpl.emit(cs, r0, base, head)
+
+
+def poseidon(cs: ConstraintSystem, vals: List[Num]) -> Num:
+    """In-circuit Poseidon of 1..16 Nums: `_poseidon_terms`'s constraints,
+    palette growth and assignment, with everything after the first
+    round's S-boxes appended from the width's template.  Timed as the span
+    "synthesis.poseidon"."""
+    return spans.timed("synthesis.poseidon", _poseidon, cs, vals)
 
 
 # ---------------------------------------------------------------- merkle

@@ -1,6 +1,8 @@
 """R1CS constraint system — the gadget substrate, in array form.
 
-A copy of `bazuka_tpu/groth16/r1cs.py`.
+A copy of `bazuka_tpu/groth16/r1cs.py`, with `template_cids` and
+`append_terms`, which let a gadget append a block of constraints recorded
+once (`gadgets.poseidon`) without rebuilding its terms.
 
 Equivalent in role to bellman's `ConstraintSystem` trait consumed by the
 reference's circuits (reference: src/mpn/circuits/, src/zk/groth16/gadgets/).
@@ -117,6 +119,8 @@ class ConstraintSystem:
         self._cids = (array("i"), array("i"), array("i"))
         self._palette: List[int] = [1]
         self._coeff_ids: Dict[int, int] = {1: 0}
+        # palette ids of each template's coefficients (`template_cids`)
+        self._template_ids: Dict[object, np.ndarray] = {}
 
     # ---- allocation
 
@@ -159,6 +163,30 @@ class ConstraintSystem:
                 rows.append(r)
                 vars_.append(var)
                 cids.append(self._cid(coeff))
+
+    def template_cids(self, template, coeffs: List[int]) -> np.ndarray:
+        """The palette ids of a template's distinct coefficients, given in
+        the order its terms first use them, as int32; made once per
+        template and system.  Registering them in that order grows the
+        palette as enforcing the template's terms one by one would."""
+        ids = self._template_ids.get(template)
+        if ids is None:
+            ids = np.array([self._cid(c) for c in coeffs], dtype=np.int32)
+            self._template_ids[template] = ids
+        return ids
+
+    def append_terms(self, rows, vars_, cids, n_rows: int, values: list):
+        """Append n_rows whole constraints at once: per matrix, their terms'
+        rows, variables and palette ids as int32 arrays in enforce order
+        (rows numbered from `n_constraints` on), and the values of the
+        aux variables they allocate, in allocation order (each None in
+        setup mode)."""
+        for m in range(3):
+            self._rows[m].frombytes(rows[m].tobytes())
+            self._vars[m].frombytes(vars_[m].tobytes())
+            self._cids[m].frombytes(cids[m].tobytes())
+        self.n_constraints += n_rows
+        self.assignment.extend(values)
 
     # ---- evaluation
 

@@ -8,12 +8,10 @@ already below r, and writes its 16 limbs at its input-major row
 pass.  A `cs` without `assignment` and `_remap` is encoded from
 `full_assignment()` in its own order.
 
-The library is built with the host's C++ compiler against this
-interpreter's `Python.h` into `bazuka_tpu_torch/_build/`, named by a hash of
-its source and flags, at first use, and loaded with `ctypes.PyDLL`: the pass
-walks Python ints, so it holds the GIL.  Where it cannot be built or loaded,
-the bytes path (`fields.limbs.ints_to_array` over `full_assignment()`) does
-the same work.
+The library is built at first use against this interpreter's `Python.h`
+and loaded with `ctypes.PyDLL` (`ops/_cxx.py`): the pass walks Python ints,
+so it holds the GIL.  Where it cannot be built or loaded, the bytes path
+(`fields.limbs.ints_to_array` over `full_assignment()`) does the same work.
 
 Spans: `witness.assignment` (getting the assignment and the remap, or
 `full_assignment()`), `witness.limbs` (the pass).  Counters, counted only
@@ -25,18 +23,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import sysconfig
-from pathlib import Path
 
 import numpy as np
 
 from ..fields.host import FR_MODULUS
 from ..fields.limbs import ints_to_array
-from ..ops._cuda import BUILD, CSRC
+from ..ops import _cxx
+from ..ops._cuda import CSRC
 from ..utils import spans
 from ..utils.logging import logger
 from .r1cs import SynthesisError
@@ -45,44 +38,16 @@ P = FR_MODULUS
 _P_LE = P.to_bytes(32, "little")
 
 SOURCE = CSRC / "witness.cpp"
-FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 _NOT_PROVING = -2  # the pass's code for a None value
-
-
-def _include() -> str:
-    return sysconfig.get_paths()["include"]
-
-
-def lib_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(FLAGS + (_include(),)).encode())
-    return BUILD / f"witness_{h.hexdigest()[:16]}.so"
-
-
-def _build(out: Path):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise OSError("no C++ compiler")
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *FLAGS, "-I", _include(), "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise OSError(f"{cxx} failed for {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, out)
 
 
 @functools.cache
 def load_encoder():
     """The native pass (a ctypes function), built at first use; None where
     it cannot be built or loaded (the reason goes to the port's log)."""
-    out = lib_path()
     try:
-        if not out.exists():
-            _build(out)
-        fn = ctypes.PyDLL(str(out)).bz_encode_assignment
+        fn = _cxx.load(SOURCE, python=True).bz_encode_assignment
     except OSError as e:
         logger.warning("witness encoder unavailable, bytes path: %s", e)
         return None

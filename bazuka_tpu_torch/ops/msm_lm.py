@@ -25,6 +25,8 @@ below it; the port runs v3 at every size (the affine result is the same).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -34,8 +36,11 @@ from ..crypto import bls12_381 as bls
 from ..fields.limbs import (fp_field, fr_field, to_torch, widen_flags,
                             widen_limbs)
 from ..utils import spans
+from ..utils.logging import logger
+from . import _cxx
 from . import curve_kernels as ck
 from . import weierstrass as wst
+from ._cuda import CSRC
 
 N_LIMB = 24  # Fp limbs
 LANE_TILE = 1024  # lane padding granularity (the TPU kernel's 8x128 tile)
@@ -230,6 +235,12 @@ def _msm_v3(P_am, inf, scalars, c: int, nbits: int, chunk: int, kind: str):
 # (points sorted by group, cut into K equal lanes, a static number of
 # rounds), then finished as a tiny V-point MSM, and the main MSM runs with
 # those rows' scalars zeroed (see `pallas_msm.py:1093`).
+#
+# The groups come from one native pass over the uint16 limb rows
+# (`csrc/dedup.cpp`, span `dedup.group`).  Where its library cannot be
+# built or loaded, or a limb is 2^16 or more, numpy groups the rows by a
+# hash and, on a clash, by a sort of the rows themselves; a plan built so
+# counts `dedup.fallback`.  Every path gives the same plan.
 
 
 # Odd multipliers of the 64-bit row hash.  Any constants will do: every
@@ -283,6 +294,93 @@ def _heavy_groups_hashed(rows: np.ndarray, threshold: int):
     return hm_pos, labels[hm_pos], vals[order]
 
 
+_CLASH = -1  # the native pass's code for a hash clash
+
+
+@functools.cache
+def load_grouper():
+    """The native grouping pass (a ctypes function), built at first use;
+    None where it cannot be built or loaded (the reason goes to the port's
+    log)."""
+    try:
+        fn = _cxx.load(CSRC / "dedup.cpp").bz_heavy_groups
+    except OSError as e:
+        logger.warning("dedup grouping pass unavailable, numpy path: %s", e)
+        return None
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = ctypes.c_int64
+    return fn
+
+
+def _heavy_groups_native(rows: np.ndarray, threshold: int):
+    """`_heavy_groups_exact`'s (member positions ascending, their labels,
+    (V, 16) heavy values) from (N, 16) uint16 rows in one native pass
+    (`load_grouper()`, which must not be None), and a fourth array: the
+    members ordered by label, ascending within one.  None on a hash
+    clash."""
+    fn = load_grouper()
+    rows = np.ascontiguousarray(rows)
+    if rows.dtype != np.uint16 or rows.ndim != 2 or rows.shape[1] != 16:
+        raise ValueError(f"want (N, 16) uint16 rows, got {rows.dtype} "
+                         f"{rows.shape}")
+    n = rows.shape[0]
+    if n >= 1 << 32:
+        raise ValueError(f"{n} rows: the pass numbers rows in 32 bits")
+    mul = np.ascontiguousarray(_ROW_HASH_MUL, np.uint64)
+    hm_pos, labels, grouped = (np.empty(n, np.int64) for _ in range(3))
+    max_vals = n // (max(threshold, 0) + 1)
+    vals = np.empty((max_vals, 16), np.uint16)
+    n_heavy = ctypes.c_int64(0)
+    V = fn(rows.ctypes.data, n, threshold, mul.ctypes.data,
+           hm_pos.ctypes.data, labels.ctypes.data, grouped.ctypes.data,
+           vals.ctypes.data, max_vals, ctypes.byref(n_heavy))
+    if V == _CLASH:
+        return None
+    if V < 0:
+        raise RuntimeError(f"dedup grouping pass failed with code {V}")
+    H = n_heavy.value
+    return hm_pos[:H], labels[:H], vals[:V].astype(np.uint32), grouped[:H]
+
+
+def _narrow_rows(s_np: np.ndarray) -> Optional[np.ndarray]:
+    """The scalar rows as uint16, or None if a limb is 2^16 or more."""
+    s_np = np.asarray(s_np)
+    if s_np.dtype == np.uint16:
+        return s_np
+    rows = np.ascontiguousarray(s_np, np.uint32)
+    if rows.size and int(rows.max()) >= 1 << 16:
+        return None
+    return rows.astype(np.uint16)
+
+
+def _heavy_groups(s_np: np.ndarray, threshold: int):
+    """(N, 16) scalar limbs -> (members ordered by label, ascending within
+    one; their labels; (V, 16) uint32 heavy values): the native pass where
+    it runs, else numpy (`dedup.fallback`)."""
+    rows = _narrow_rows(s_np)
+    clash = False
+    if rows is not None and load_grouper() is not None:
+        with spans.span("dedup.group"):
+            got = _heavy_groups_native(rows, threshold)
+        if got is not None:
+            _, labels, heavy_rows, grouped = got
+            V = heavy_rows.shape[0]
+            return (grouped, np.repeat(np.arange(V),
+                                       np.bincount(labels, minlength=V)),
+                    heavy_rows)
+        clash = True
+    spans.count("dedup.fallback")
+    rows = np.ascontiguousarray(s_np, np.uint32)
+    hm_pos, labels, heavy_rows = (
+        (None if clash else _heavy_groups_hashed(rows, threshold))
+        or _heavy_groups_exact(rows, threshold))
+    order = np.argsort(labels, kind="stable")
+    return hm_pos[order], labels[order], heavy_rows
+
+
 class _DedupPlan:
     """Host-side reduction plan for one scalar vector (shared by every MSM
     over the same scalars)."""
@@ -303,16 +401,12 @@ class _DedupPlan:
             self._lab = lab
             self._build(lab, V)
             return
-        rows = np.ascontiguousarray(s_np, np.uint32)
-        hm_pos, labels, heavy_rows = (_heavy_groups_hashed(rows, threshold)
-                                      or _heavy_groups_exact(rows, threshold))
+        hpos, lab, heavy_rows = _heavy_groups(s_np, threshold)
         self.n_heavy_vals = V = int(heavy_rows.shape[0])
         self.active = V > 0
         if not self.active:
             return
-        order = np.argsort(labels, kind="stable")
-        self.hpos = hm_pos[order].astype(np.int64)
-        lab = labels[order]
+        self.hpos = hpos.astype(np.int64)
         self.heavy_scalars = heavy_rows  # (V, 16) std limbs
         self._lab = lab
         self._build(lab, V)

@@ -50,7 +50,7 @@ from ..crypto import bls12_381 as bls
 from ..device import resolve_device
 from ..fields.host import FR_GENERATOR, FR_MODULUS
 from ..fields.limbs import (fr_field, narrow_limbs, narrow_to_device,
-                            to_torch, widen_flags, widen_limbs)
+                            widen_flags, widen_limbs)
 from ..ops import msm_lm as msm
 from ..ops import ntt as ntt_mod
 from ..utils import spans
@@ -157,21 +157,11 @@ def _g2_msm_big(query, scalars_std, plan, c: int, chunk: int):
     add (`bazuka_tpu/groth16/prove.py:195-236`).  The scalars may be
     handed over in a list, as to `msm_lm`."""
     am_n, inf_n = query
-    scalars_std = msm.take_scalars(scalars_std)
     inf = _widen_u32(inf_n)
-    extra = None
-    if plan is not None and plan.active:
-        sum_am, sum_inf = msm.presum_g2_am(am_n, inf, plan)
-        V = int(plan.heavy_scalars.shape[0])
-        extra = msm.msm_lm_g2(sum_am, sum_inf,
-                              to_torch(plan.heavy_scalars, am_n.device),
-                              c=4 if V < (1 << 12) else 8, chunk=chunk)
-        del sum_am, sum_inf
-        # a zeroed copy; this frame no longer holds the caller's scalars
-        scalars_std = scalars_std.clone()
-        scalars_std[torch.from_numpy(plan.hpos).to(am_n.device)] = 0
+    total, scalars_std = msm.dedup_split(
+        "g2", plan, lambda: msm.presum_g2_am(am_n, inf, plan), scalars_std,
+        chunk=chunk)
     half = int(am_n.shape[0]) // 2
-    total = extra
     for lo in (0, half):
         wide = _widen_u32(am_n[lo:lo + half])
         part = msm.msm_lm_g2(wide, inf[lo:lo + half],
@@ -215,26 +205,20 @@ def assemble(pk, sums: dict, r: int, s: int) -> Groth16Proof:
     return Groth16Proof(a=g1_wire(A_pt), b=g2_wire(B2_pt), c=g1_wire(C_pt))
 
 
-@spans.call("create_proof")
-def create_proof(
-    params: Parameters,
-    cs: ConstraintSystem,
-    r: Optional[int] = None,
-    s: Optional[int] = None,
-    device="cuda",
-    record: Optional[dict] = None,
-) -> Groth16Proof:
-    """One Groth16 proof.  `cs` is anything with `n_constraints`,
-    `compiled()` and `full_assignment()`.  If `record` is a dict it is
-    filled with per-stage seconds (the card synchronised at each stage
-    boundary; `upload_*` the wait for a host query's upload), the dedup
-    plan's heavy-value count, whether big mode ran and, below BIG_DOMAIN,
-    the h coefficients ("h_std"; big mode keeps one copy of h, the MSM's
-    padded one).  The stages are spans of the call either way
-    (`utils.spans`); only `record` synchronises."""
-    dev = resolve_device(device)
-    st = spans.Stages("setup", (lambda: torch.cuda.synchronize(dev))
-                      if record is not None and dev.type == "cuda" else None)
+def prove_with(params: Parameters, cs: ConstraintSystem, dev,
+               r: Optional[int], s: Optional[int], record: Optional[dict],
+               sync, compute_h, put, run_msm,
+               big_from: Optional[int] = None) -> Groth16Proof:
+    """The stages of one proof, shared by `create_proof` and
+    `parallel.prove.create_proof_sharded`, which hand in what differs:
+    `compute_h(evs, d)` (h's standard-form coefficients on `dev`),
+    `put(query)` (a key's query where `run_msm` reads it) and
+    `run_msm(kind, q, box, plan, c, big)` (one MSM's host sum, "g1" or
+    "g2", its scalars in the one-element list `box`).  From d = big_from
+    (None: never) the proof runs in big mode.  `sync` synchronises the
+    device(s) at each stage boundary if `record` is a dict
+    (`create_proof`'s record)."""
+    st = spans.Stages("setup", sync if record is not None else None)
     pk = params.pk
     dr = params.dev_r1cs
     if (dr is None or dr.c.n_constraints != cs.n_constraints
@@ -252,8 +236,7 @@ def create_proof(
 
     Np = pk.a_query[0].shape[0]
     d = qap.domain_size(dr.c.n_constraints, n_inputs)
-    big = d >= BIG_DOMAIN
-    g2_chunk = (1 << 17) if big else (1 << 18)
+    big = big_from is not None and d >= big_from
     z_np = encode_assignment(cs, num_vars, Np)
     z_narrow = narrow_to_device(z_np, dev)
     if big:  # only the narrow z is held through the h phase
@@ -272,7 +255,7 @@ def create_proof(
                for p in dr.row_plans]
         del z_mont
         st.next("h_ntt")
-        h_std = compute_h_mont(evs, d)
+        h_std = compute_h(evs, d)
         st.next("dedup_plans")
         # the wait for the plans past the h phase
         plan_z, plan_aux = plans.result()
@@ -287,35 +270,25 @@ def create_proof(
     # every query has the same padded length Np (scalars zero-padded); the
     # scalars ride in one-element lists that each MSM empties, so that the
     # last MSM of a tensor holds its only reference
-    c_full = _msm_c(Np)
-
-    def run_g1(q, box, plan):
-        return msm.msm_lm(*_consume(q), box, c=c_full, dedup_plan=plan)
-
-    def run_g2(q, box, plan):
-        if big:  # the narrow query passes through: widened per half
-            return _g2_msm_big(q, box, plan, c_full, g2_chunk)
-        return msm.msm_lm_g2(*_consume(q), box, c=c_full, chunk=g2_chunk,
-                             dedup_plan=plan)
-
-    jobs = [("a", pk.a_query, run_g1, [z_std], plan_z),
-            ("b_g1", pk.b_g1_query, run_g1, [z_std], plan_z)]
+    jobs = [("a", pk.a_query, "g1", [z_std], plan_z),
+            ("b_g1", pk.b_g1_query, "g1", [z_std], plan_z)]
     if d > 1:
-        jobs.append(("h", pk.h_query, run_g1, [_pad_rows(h_std, Np)], None))
+        jobs.append(("h", pk.h_query, "g1", [_pad_rows(h_std, Np)], None))
     if record is not None and not big:
         record["h_std"] = h_std
     del h_std
     if num_vars > n_inputs:
-        jobs.append(("l", pk.l_query, run_g1, [aux], plan_aux))
+        jobs.append(("l", pk.l_query, "g1", [aux], plan_aux))
     del aux
-    jobs.append(("b_g2", pk.b_g2_query, run_g2, [z_std], plan_z))
+    jobs.append(("b_g2", pk.b_g2_query, "g2", [z_std], plan_z))
     del z_std
+    c = _msm_c(Np)
     sums = {"h": None, "l": None}
-    for k, (name, query, run, box, plan) in enumerate(jobs):
-        q = _put(query, dev)
+    for k, (name, query, kind, box, plan) in enumerate(jobs):
+        q = put(query)
         if isinstance(query[0], np.ndarray):
             st.next(f"msm_{name}")
-        sums[name] = run(q, box, plan)
+        sums[name] = run_msm(kind, q, box, plan, c, big)
         del q
         st.next(_opening(*jobs[k + 1][:2]) if k + 1 < len(jobs)
                 else "combine")
@@ -327,3 +300,40 @@ def create_proof(
         record["n_heavy_vals"] = plan_z.n_heavy_vals
         record["big_mode"] = big
     return proof
+
+
+def _run_msm(kind: str, q, box, plan, c: int, big: bool):
+    """One MSM of the proof on one device; in big mode the G2 query
+    passes through narrow, widened per half."""
+    if kind == "g1":
+        return msm.msm_lm(*_consume(q), box, c=c, dedup_plan=plan)
+    if big:
+        return _g2_msm_big(q, box, plan, c, 1 << 17)
+    return msm.msm_lm_g2(*_consume(q), box, c=c, chunk=1 << 18,
+                         dedup_plan=plan)
+
+
+@spans.call("create_proof")
+def create_proof(
+    params: Parameters,
+    cs: ConstraintSystem,
+    r: Optional[int] = None,
+    s: Optional[int] = None,
+    device="cuda",
+    record: Optional[dict] = None,
+) -> Groth16Proof:
+    """One Groth16 proof.  `cs` is anything with `n_constraints`,
+    `compiled()` and `full_assignment()`.  If `record` is a dict it is
+    filled with per-stage seconds (the card synchronised at each stage
+    boundary; `upload_*` the wait for a host query's upload), the dedup
+    plan's heavy-value count, whether big mode ran and, below BIG_DOMAIN,
+    the h coefficients ("h_std"; big mode keeps one copy of h, the MSM's
+    padded one).  The stages are spans of the call either way
+    (`utils.spans`); only `record` synchronises."""
+    dev = resolve_device(device)
+    return prove_with(
+        params, cs, dev, r, s, record,
+        (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+        else None,
+        compute_h_mont, lambda query: _put(query, dev), _run_msm,
+        big_from=BIG_DOMAIN)

@@ -238,13 +238,14 @@ def _msm_v3(P_am, inf, scalars, c: int, nbits: int, chunk: int, kind: str):
 #
 # The groups come from one native pass over the uint16 limb rows
 # (`csrc/dedup.cpp`, span `dedup.group`).  Where its library cannot be
-# built or loaded, or a limb is 2^16 or more, numpy groups the rows by a
-# hash and, on a clash, by a sort of the rows themselves; a plan built so
-# counts `dedup.fallback`.  Every path gives the same plan.
+# built or loaded, a limb is 2^16 or more, or two rows' hashes clash,
+# numpy groups the rows by a sort of the rows themselves; a plan built so
+# counts `dedup.fallback`.  Both paths give the same plan.
 
 
-# Odd multipliers of the 64-bit row hash.  Any constants will do: every
-# grouping is checked row by row, and a clash takes the exact path.
+# Odd multipliers of the native pass's 64-bit row hash.  Any constants will
+# do: every grouping is checked row by row, and a clash takes the exact
+# path.
 _ROW_HASH_MUL = np.random.default_rng(0x5EED).integers(
     0, 1 << 63, 16, dtype=np.uint64) * np.uint64(2) + np.uint64(1)
 
@@ -265,33 +266,6 @@ def _heavy_groups_exact(rows: np.ndarray, threshold: int):
     hm_pos = np.flatnonzero(heavy_u[inverse])
     labels = np.searchsorted(hvals, inverse[hm_pos]).astype(np.int64)
     return hm_pos, labels, uniq_rows[hvals]
-
-
-def _heavy_groups_hashed(rows: np.ndarray, threshold: int):
-    """`_heavy_groups_exact`'s result from a sort of one 64-bit hash per
-    row: numpy passes that release the GIL, so the plan builds beside the
-    prover's device work.  Every member of a heavy hash group is compared
-    with the group's first row; None if any differs (a clash)."""
-    h = np.zeros(rows.shape[0], np.uint64)
-    for k in range(16):
-        h += rows[:, k].astype(np.uint64) * _ROW_HASH_MUL[k]  # mod 2^64
-    _, first, inverse, counts = np.unique(
-        h, return_index=True, return_inverse=True, return_counts=True)
-    inverse = inverse.reshape(-1)
-    cand = counts > threshold
-    pos = np.flatnonzero(cand[inverse])
-    if not np.array_equal(rows[pos], rows[first[inverse[pos]]]):
-        return None
-    grp = np.flatnonzero(cand)
-    vals = rows[first[grp]]
-    keep = vals.any(axis=1)
-    grp, vals = grp[keep], vals[keep]
-    order = np.lexsort(vals.T[::-1])  # limb 0 most significant
-    rank = np.full(counts.shape[0], -1, np.int64)
-    rank[grp[order]] = np.arange(grp.shape[0])
-    labels = rank[inverse]
-    hm_pos = np.flatnonzero(labels >= 0)
-    return hm_pos, labels[hm_pos], vals[order]
 
 
 _CLASH = -1  # the native pass's code for a hash clash
@@ -359,9 +333,8 @@ def _narrow_rows(s_np: np.ndarray) -> Optional[np.ndarray]:
 def _heavy_groups(s_np: np.ndarray, threshold: int):
     """(N, 16) scalar limbs -> (members ordered by label, ascending within
     one; their labels; (V, 16) uint32 heavy values): the native pass where
-    it runs, else numpy (`dedup.fallback`)."""
+    it runs, else numpy's sort (`dedup.fallback`)."""
     rows = _narrow_rows(s_np)
-    clash = False
     if rows is not None and load_grouper() is not None:
         with spans.span("dedup.group"):
             got = _heavy_groups_native(rows, threshold)
@@ -371,12 +344,9 @@ def _heavy_groups(s_np: np.ndarray, threshold: int):
             return (grouped, np.repeat(np.arange(V),
                                        np.bincount(labels, minlength=V)),
                     heavy_rows)
-        clash = True
     spans.count("dedup.fallback")
-    rows = np.ascontiguousarray(s_np, np.uint32)
-    hm_pos, labels, heavy_rows = (
-        (None if clash else _heavy_groups_hashed(rows, threshold))
-        or _heavy_groups_exact(rows, threshold))
+    hm_pos, labels, heavy_rows = _heavy_groups_exact(
+        np.ascontiguousarray(s_np, np.uint32), threshold)
     order = np.argsort(labels, kind="stable")
     return hm_pos[order], labels[order], heavy_rows
 
@@ -546,32 +516,40 @@ def take_scalars(scalars):
     return scalars.pop() if isinstance(scalars, list) else scalars
 
 
+def dedup_split(kind: str, plan: Optional[_DedupPlan], presum, scalars,
+                nbits: int = 255, chunk: int = 1 << 18):
+    """The dedup split of one MSM: Σ s_i·P_i = Σ_{light} s_i·P_i +
+    Σ_{heavy vals v} v·(Σ_{group} P_i).  With an active plan, `presum()`
+    gives the heavy groups' affine sums (`presum_g1`/`presum_g2_am` or the
+    caller's own), and their V-point MSM runs here; returns (that sum, a
+    copy of the scalars with the heavy rows zeroed), else (None, the
+    scalars).  `scalars` may be handed over in a one-element list
+    (`take_scalars`); this frame drops its reference to the caller's
+    tensor before it returns (pallas_msm.py:1404), so the caller's drain
+    runs over the copy alone."""
+    scalars = take_scalars(scalars)
+    if plan is None or not plan.active:
+        return None, scalars
+    V = int(plan.heavy_scalars.shape[0])
+    sum_am, sum_inf = presum()
+    heavy = _msm(kind, sum_am, sum_inf,
+                 to_torch(plan.heavy_scalars, sum_am.device),
+                 4 if V < (1 << 12) else 8, nbits, chunk, None)
+    del sum_am, sum_inf
+    light = scalars.clone()
+    light[torch.from_numpy(plan.hpos).to(light.device)] = 0
+    return heavy, light
+
+
 def _msm(kind, P_am, inf, scalars_std, c, nbits, chunk, dedup_plan):
-    add = bls.g1_add if kind == "g1" else bls.g2_add
     inf = widen_flags(inf)
-    scalars_std = take_scalars(scalars_std)
-    if dedup_plan is not None and dedup_plan.active:
-        # Σ s_i·P_i = Σ_{light} s_i·P_i + Σ_{heavy vals v} v·(Σ_{group} P_i)
-        plan = dedup_plan
-        dev = P_am.device
-        if kind == "g1":
-            sum_am, sum_inf = presum_g1(P_am, inf, plan)
-        else:
-            sum_am, sum_inf = presum_g2_am(P_am, inf, plan)
-        V = int(plan.heavy_scalars.shape[0])
-        extra = _msm(kind, sum_am, sum_inf, to_torch(plan.heavy_scalars, dev),
-                     4 if V < (1 << 12) else 8, nbits, chunk, None)
-        del sum_am, sum_inf
-        # the heavy rows zeroed in a copy; this frame then drops its
-        # reference to the scalars (pallas_msm.py:1404), so scalars
-        # handed over in a list are freed here, before the drain
-        scal = scalars_std.clone()
-        scal[torch.from_numpy(plan.hpos).to(dev)] = 0
-        del scalars_std
-        main = _msm(kind, P_am, inf, scal, c, nbits, chunk, None)
-        return add(main, extra)
+    pres = presum_g1 if kind == "g1" else presum_g2_am
+    extra, scalars_std = dedup_split(
+        kind, dedup_plan, lambda: pres(P_am, inf, dedup_plan), scalars_std,
+        nbits, chunk)
     wins = _msm_v3(P_am, inf, scalars_std, c, nbits, chunk, kind)
-    return _combine(kind, wins, c)
+    add = bls.g1_add if kind == "g1" else bls.g2_add
+    return add(_combine(kind, wins, c), extra)
 
 
 def msm_lm(P_am, inf, scalars_std, c: int = 12, nbits: int = 255,

@@ -15,19 +15,19 @@
     the heavy groups are presummed from the heavy rows alone (gathered on
     the host for a host query, `_presum_from_host`), finished in a small
     MSM on shard 0's device, and the sharded drain sees those rows'
-    scalars zeroed.
+    scalars zeroed (`msm_lm.dedup_split`).
 
-Witness encode and the sparse row evaluation run on shard 0's device, as
-the JAX package runs them replicated.  The shards run one after another:
+The proof's stages are `groth16.prove.prove_with`'s, as for one device:
+this module hands it the three steps that differ (the h phase, placing a
+query's rows on the shards, the sharded drain).  Witness encode and the
+sparse row evaluation run on shard 0's device, as the JAX package runs
+them replicated.  The shards run one after another:
 each drain waits on the host for its data-dependent scan steps.  The JAX
 package's sharded prover has no big mode, and neither has this one.
 """
 
 from __future__ import annotations
 
-import secrets
-import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -35,17 +35,14 @@ import torch
 
 from ..crypto import bls12_381 as bls
 from ..fields.host import FR_GENERATOR, FR_MODULUS
-from ..fields.limbs import fr_field, narrow_to_device, to_torch
+from ..fields.limbs import (fr_field, narrow_to_device, to_torch, widen_flags,
+                            widen_limbs)
 from ..groth16 import prove as single
-from ..groth16 import qap
 from ..groth16.keygen import Parameters
 from ..groth16.r1cs import ConstraintSystem
-from ..groth16.sparse import DeviceR1CS
-from ..groth16.witness import encode_assignment
 from ..ops import curve_kernels as ck
 from ..ops import msm_lm as msm
 from ..ops import ntt as ntt_mod
-from ..utils import spans
 from ..zk.proof import Groth16Proof
 from . import Mesh, _blocks, gather_rows, ntt_four_step, synchronize
 
@@ -91,19 +88,50 @@ def _presum_from_host(query, plan, kind: str, device):
     return pres(*heavy, plan, rows=np.arange(plan.n_heavy_elems))
 
 
-def _shard_query(query, lo: int, hi: int, device):
-    """Rows [lo, hi) of a query on `device`: a host query's uploaded
-    narrow, a tensor's moved as they are."""
+def _place(mesh: Mesh, query):
+    """(the query, [shard i's rows of it on mesh[i]]): a host query's rows
+    uploaded narrow, a tensor's moved as they are; `_msm_placed` takes
+    the pair."""
     am, inf = query
-    if isinstance(am, np.ndarray):
-        return (narrow_to_device(am[lo:hi], device),
-                narrow_to_device(inf[lo:hi], device))
-    return am[lo:hi].to(device), inf[lo:hi].to(device)
+    n = int(am.shape[0]) // len(mesh)
+    move = (narrow_to_device if isinstance(am, np.ndarray)
+            else lambda t, dev: t.to(dev))
+    return query, [(move(am[i * n:(i + 1) * n], dev),
+                    move(inf[i * n:(i + 1) * n], dev))
+                   for i, dev in enumerate(mesh)]
+
+
+def _msm_placed(mesh: Mesh, placed, scalars_std, kind: str, c: int,
+                nbits: int, chunk: int, plan):
+    """`msm_sharded_v3` over a query already placed (`_place`).  The
+    shards' parts are dropped from the list as each is widened."""
+    dev0 = mesh[0]
+    query, parts = placed
+
+    def presum():
+        if isinstance(query[0], np.ndarray):
+            return _presum_from_host(query, plan, kind, dev0)
+        pres = msm.presum_g1 if kind == "g1" else msm.presum_g2_am
+        return tuple(t.to(dev0) for t in pres(*query, plan))
+
+    extra, scalars_std = msm.dedup_split(kind, plan, presum, scalars_std,
+                                         nbits, chunk)
+    n = int(scalars_std.shape[0]) // len(mesh)
+    wins = []
+    for i, dev in enumerate(mesh):
+        P_i, inf_i = widen_limbs(parts[i][0]), widen_flags(parts[i][1])
+        parts[i] = None  # a narrow part goes once it is widened
+        wins.append(msm._msm_v3(P_i, inf_i,
+                                scalars_std[i * n:(i + 1) * n].to(dev),
+                                c, nbits, chunk, kind))
+        del P_i, inf_i
+    main = msm._combine(kind, _reduce_parts(wins, kind, dev0), c)
+    return (bls.g1_add if kind == "g1" else bls.g2_add)(main, extra)
 
 
 def msm_sharded_v3(mesh: Mesh, query, scalars_std, kind: str = "g1",
                    c: int = 12, nbits: int = 255, chunk: int = 1 << 18,
-                   dedup_plan=None, record: Optional[dict] = None):
+                   dedup_plan=None):
     """The v3 drain per shard over its range of rows, the shards' window
     sums tree-reduced on shard 0's device (`_reduce_parts`).
 
@@ -111,56 +139,20 @@ def msm_sharded_v3(mesh: Mesh, query, scalars_std, kind: str = "g1",
     as host numpy arrays (uploaded narrow, a shard's rows at a time) or
     tensors on any device (each shard's rows moved to it); N must divide
     by the mesh's size.  scalars_std: (N, 16) standard-form Fr limbs
-    (numpy or a tensor).  With an active dedup plan the heavy groups'
-    presum runs where the query is (a host query's on shard 0's device)
-    and their small MSM on shard 0's device; the drain sees their
-    scalars zeroed.  If `record` is a dict, a host query's upload seconds
-    (the cards synchronised) go to its "upload_s".  Returns a host affine
-    point (None for the zero sum)."""
-    D = len(mesh)
-    dev0 = mesh[0]
-    am, inf = query
-    N = int(am.shape[0])
-    if N % D:
-        raise ValueError(f"pad the MSM length ({N}) to the mesh size ({D})")
-    host = isinstance(am, np.ndarray)
+    (numpy, a tensor, or a tensor in a one-element list, as for
+    `msm_lm`).  With an active dedup plan the heavy groups' presum runs
+    where the query is (a host query's on shard 0's device) and their
+    small MSM on shard 0's device (`msm_lm.dedup_split`); the drain sees
+    their scalars zeroed.  Returns a host affine point (None for the zero
+    sum)."""
+    N = int(query[0].shape[0])
+    if N % len(mesh):
+        raise ValueError(f"pad the MSM length ({N}) to the mesh size "
+                         f"({len(mesh)})")
     if isinstance(scalars_std, np.ndarray):
-        scalars_std = to_torch(scalars_std, dev0)
-    add = bls.g1_add if kind == "g1" else bls.g2_add
-    extra = None
-    if dedup_plan is not None and dedup_plan.active:
-        plan = dedup_plan
-        if host:
-            sum_am, sum_inf = _presum_from_host(query, plan, kind, dev0)
-        else:
-            pres = msm.presum_g1 if kind == "g1" else msm.presum_g2_am
-            sum_am, sum_inf = pres(am, inf, plan)
-        V = int(plan.heavy_scalars.shape[0])
-        small = msm.msm_lm if kind == "g1" else msm.msm_lm_g2
-        extra = small(sum_am.to(dev0), sum_inf.to(dev0),
-                      to_torch(plan.heavy_scalars, dev0),
-                      c=4 if V < (1 << 12) else 8, nbits=nbits, chunk=chunk)
-        del sum_am, sum_inf
-        scalars_std = scalars_std.clone()
-        scalars_std[torch.from_numpy(plan.hpos).to(scalars_std.device)] = 0
-
-    n = N // D
-    t0 = time.perf_counter()
-    parts = [_shard_query(query, i * n, (i + 1) * n, dev)
-             for i, dev in enumerate(mesh)]
-    if record is not None and host:
-        synchronize(mesh)
-        record["upload_s"] = time.perf_counter() - t0
-    wins = []
-    for i, dev in enumerate(mesh):
-        P_i, inf_i = single._consume(parts[i])
-        parts[i] = None  # a narrow part goes once it is widened
-        wins.append(msm._msm_v3(P_i, inf_i,
-                                scalars_std[i * n:(i + 1) * n].to(dev),
-                                c, nbits, chunk, kind))
-        del P_i, inf_i
-    main = msm._combine(kind, _reduce_parts(wins, kind, dev0), c)
-    return add(main, extra)
+        scalars_std = to_torch(scalars_std, mesh[0])
+    return _msm_placed(mesh, _place(mesh, query), scalars_std, kind, c,
+                       nbits, chunk, dedup_plan)
 
 
 # -------------------------------------------------------- sharded h phase
@@ -241,83 +233,27 @@ def compute_h_sharded(mesh: Mesh, evs: list, d: int) -> torch.Tensor:
 def create_proof_sharded(params: Parameters, cs: ConstraintSystem, mesh: Mesh,
                          r: Optional[int] = None, s: Optional[int] = None,
                          record: Optional[dict] = None) -> Groth16Proof:
-    """`groth16.prove.create_proof` over the mesh: the same math and wire
-    bytes, with the five MSMs on `msm_sharded_v3` and the h phase on
-    `compute_h_sharded`.  Witness encode, row evaluation and the dedup
-    plans run as in `create_proof`, on shard 0's device; the key's queries
-    may lie on a card or on the host.  Np must divide by the mesh's size.
-    If `record` is a dict it gets per-stage seconds (the cards
-    synchronised at each stage boundary; `upload_*` a host query's
-    uploads, outside its `msm_*`) and the dedup plan's heavy-value count.
-    The stage seconds come from `utils.spans.Stages`; only `record`
-    synchronises."""
-    dev = mesh[0]
-    st = spans.Stages("setup", (lambda: synchronize(mesh))
-                      if record is not None else None)
-    pk = params.pk
-    Np = pk.a_query[0].shape[0]
+    """`groth16.prove.create_proof` over the mesh: the same stages
+    (`groth16.prove.prove_with`) and wire bytes, with the h phase on
+    `compute_h_sharded` and each MSM's query placed a shard's rows per
+    device and drained there (`msm_sharded_v3`'s steps).  Witness encode,
+    row evaluation and the dedup plans run on shard 0's device; the key's
+    queries may lie on a card or on the host.  Np must divide by the
+    mesh's size; there is no big mode.  `record` is as for `create_proof`
+    (the cards synchronised at each stage boundary), with the mesh's
+    devices under "shards"."""
+    Np = params.pk.a_query[0].shape[0]
     if Np % len(mesh):
         raise ValueError(f"the mesh ({len(mesh)} shards) must divide the "
                          f"key's length Np = {Np}")
-    dr = params.dev_r1cs
-    if (dr is None or dr.c.n_constraints != cs.n_constraints
-            or dr.device != dev):
-        dr = DeviceR1CS(cs.compiled(), dev)
-        params.dev_r1cs = dr
-    n_inputs = dr.c.num_inputs
-    num_vars = dr.c.num_vars
-    if r is None:
-        r = secrets.randbelow(bls.R)
-    if s is None:
-        s = secrets.randbelow(bls.R)
-    F = fr_field()
-    st.next("witness_encode")
 
-    d = qap.domain_size(dr.c.n_constraints, n_inputs)
-    z_np = encode_assignment(cs, num_vars, Np)
-    z_std = single._widen_u32(narrow_to_device(z_np, dev))
-    z_mont = F.to_mont(z_std)
-    st.next("row_eval")
+    def run_msm(kind, placed, box, plan, c, big):
+        return _msm_placed(mesh, placed, box, kind, c, 255, 1 << 18, plan)
 
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        plans = pool.submit(single._dedup_plans, z_np, n_inputs)
-        evs = [single._pad_rows(p.eval(z_mont, dr.pal_mont), d)
-               for p in dr.row_plans]
-        del z_mont
-        st.next("h_ntt")
-        h_std = compute_h_sharded(mesh, evs, d)
-        st.next("dedup_plans")
-        plan_z, plan_aux = plans.result()
-    aux = torch.zeros_like(z_std)
-    aux[: num_vars - n_inputs] = z_std[n_inputs:num_vars]
-    st.next("msm_a")
-
-    jobs = [("a", pk.a_query, z_std, plan_z, "g1"),
-            ("b_g1", pk.b_g1_query, z_std, plan_z, "g1")]
-    if d > 1:
-        jobs.append(("h", pk.h_query, single._pad_rows(h_std, Np), None,
-                     "g1"))
-    if num_vars > n_inputs:
-        jobs.append(("l", pk.l_query, aux, plan_aux, "g1"))
-    jobs.append(("b_g2", pk.b_g2_query, z_std, plan_z, "g2"))
-    del h_std, aux, z_std
-    c_full = single._msm_c(Np)
-    sums = {"h": None, "l": None}
-    while jobs:
-        name, query, scalars, plan, kind = jobs.pop(0)
-        up = {}
-        sums[name] = msm_sharded_v3(
-            mesh, query, scalars, kind, c=c_full, dedup_plan=plan,
-            record=None if record is None else up)
-        del scalars
-        st.next(f"msm_{jobs[0][0]}" if jobs else "combine",
-                (f"upload_{name}", up["upload_s"]) if "upload_s" in up
-                else None)
-
-    proof = single.assemble(pk, sums, r, s)
-    st.end()
+    proof = single.prove_with(
+        params, cs, mesh[0], r, s, record, lambda: synchronize(mesh),
+        lambda evs, d: compute_h_sharded(mesh, evs, d),
+        lambda query: _place(mesh, query), run_msm)
     if record is not None:
-        record["seconds"] = st.seconds
-        record["n_heavy_vals"] = plan_z.n_heavy_vals
         record["shards"] = [str(x) for x in mesh]
     return proof

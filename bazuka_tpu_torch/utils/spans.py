@@ -182,21 +182,13 @@ class Stages:
         self._rng = _open_range(self._call, first)
         self._t = _now()
 
-    def next(self, name: Optional[str], inner: Optional[tuple] = None):
-        """End the running stage and start `name` (None: start none).
-        `inner` = (stage, seconds): that many of the ending stage's
-        seconds, timed by a callee, go to a stage of that name, recorded
-        before it."""
+    def next(self, name: Optional[str]):
+        """End the running stage and start `name` (None: start none)."""
         if self._sync is not None:
             self._sync()
         now = _now()
         _close_range(self._rng)
-        ns = now - self._t
-        if inner is not None:
-            inner_ns = round(inner[1] * 1e9)
-            self._end(inner[0], inner_ns)
-            ns -= inner_ns
-        self._end(self._name, ns)
+        self._end(self._name, now - self._t)
         self._name, self._t = name, now
         self._rng = None if name is None else _open_range(self._call, name)
 
